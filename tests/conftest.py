@@ -19,3 +19,9 @@ def _reset_activation_context():
     yield
     from repro.distributed import context
     context.reset()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the repro_torch kernels have "
+        "no CPU mode); skips where there is none")
