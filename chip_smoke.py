@@ -19,7 +19,23 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      DB, with every kernel's launch count read from that run alone; then a
      tuned ``ops.matmul`` resolves its blocks from the DB;
   5. each kernel timed at the main path's shape and committed blocks beside
-     its bound, its plain version and the PyTorch library call.
+     its bound, its plain version and the PyTorch library call;
+  6. the flash attention kernel against its plain version on the card,
+     float32 and bfloat16, at the forward's shape and at ragged ones (Sq <
+     Skv and Sq > Skv, head dims 80/128/256, GQA, soft-cap, window, strided
+     views);
+  7. the transformer slice's full-sequence forward: qwen3-8b at full width
+     and depth (random weights from a seeded generator, bfloat16) over
+     1 x 4096 tokens through ``make_prefill_step``, with the kernel's
+     launches counted from that run alone (one per layer), against the same
+     forward with the plain attention;
+  8. serving: ``serve_requests`` on the dense ``ServeEngine`` with the same
+     model (4 slots, max_seq 2048, 8 requests of 128-1024 prompt tokens, 16
+     new tokens each); every request must end OK, and each request's
+     prefill logits (what the engine's first token came from) must agree
+     with the kernel forward's at the last prompt position;
+  9. the flash kernel timed at the forward's shape beside its bound, its
+     plain version and ``scaled_dot_product_attention``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -55,6 +71,9 @@ TUNER_FLAGS = ["--measure", "--backend", "cuda", "--trials", "6", "--init", "3",
 # H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s float32 without tensor
 # cores (every kernel here runs float32 FMA); the PCIe part: 2.0 TB/s, 51.
 CARD_RATES = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
+# dense bfloat16 tensor-core peak (data sheet, no sparsity): the least time
+# for bfloat16 work, whatever unit a kernel uses
+BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
 
 # (rtol, atol) of tests/test_kernels.py:30-60.  Not widened: the sums here
 # are longer (K up to 2^24) but each output's magnitude grows with them, so
@@ -70,7 +89,33 @@ KERNEL_META = {
     "dot": ("src/repro_torch/csrc/dotprod.cu", "src/repro/kernels/dotprod.py:45"),
     "conv2d": ("src/repro_torch/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:47"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:108"),
 }
+
+# flash attention (rtol, atol): float32 is tests/test_kernels.py:78's.
+# bfloat16: kernel and plain version are both float32 inside and round the
+# output once, so they may differ by one bfloat16 ulp, at most 2^-7 of the
+# value: rtol 1e-2 covers it, and atol only has to cover outputs near 0.
+FLASH_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 1e-3)}
+# q is drawn with this std and k, v with 1, so the scaled scores have std 3
+# whatever D is: each row's softmax puts most of its weight on a few keys
+# and the outputs are O(1), so a dropped or misweighted key tile moves them
+# by far more than the tolerance (near-uniform scores would average v to
+# ~1/sqrt(Skv) and hide such a fault under atol)
+FLASH_Q_STD = 3.0
+
+# the transformer slice: qwen3-8b over 4096 tokens; serving 8 requests
+ARCH = "qwen3-8b"
+FWD_TOKENS = 4096
+SERVE = dict(slots=4, max_seq=2048, n=8, prompt=(128, 1024), max_new=16)
+# the kernel forward against the plain-attention forward, and the engine's
+# prefill against the kernel forward, both bfloat16: least cosine over
+# positions (read 0.999813 and 0.999828 on an H100 SXM, 700 W) and, for the
+# forward, the share of positions whose argmax agrees (read 0.9604; bfloat16
+# logits tie often, so it cannot be 1)
+MIN_COSINE = 0.999
+MIN_ARGMAX_AGREE = 0.9
 
 
 class SmokeFailure(AssertionError):
@@ -131,6 +176,24 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
               f"launches {r['launches']}  max_abs_err {r['max_abs_err']:.3g}")
+
+    phase("6. flash attention against its plain version")
+    check_flash(torch)
+
+    phase(f"7. full-sequence forward: {ARCH} at full width and depth")
+    model = run_forward(torch)
+
+    phase("8. serving: the dense ServeEngine on the same model")
+    run_serving(torch, model)
+
+    phase("9. flash attention timed at the forward's shape")
+    row = time_flash(torch, model["launches"], rates,
+                     BF16_PEAK["pcie" if "PCIe" in name else "sxm"])
+    print(f"  flash_attention {row['ms']:.4f} ms  bound {row['bound_ms']:.4f}"
+          f" ms by {row['bound_by']}  plain {row['plain_ms']:.4f} ms  SDPA "
+          f"{row['library_ms']:.4f} ms  launches {row['launches']}  "
+          f"max_abs_err {row['max_abs_err']:.3g}")
+    rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -138,7 +201,7 @@ def main() -> int:
 
 
 def _rand(torch, gen, *shape, dtype):
-    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return torch.randn(*shape, generator=gen, device=gen.device).to(dtype)
 
 
 def _close(torch, got, want, rtol, atol) -> float:
@@ -213,7 +276,7 @@ def check_kernels(torch) -> None:
 
 
 def run_main_path(torch):
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import INTRINSICS, KERNELS
     from repro_torch.tuner.__main__ import main as tuner_main
     from repro_torch.tuner.db import TuningDB
 
@@ -227,7 +290,7 @@ def run_main_path(torch):
               flush=True)
         rc = tuner_main(app + TUNER_FLAGS)
         require(rc == 0, f"tuner exited {rc}")
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in INTRINSICS}
     print(f"main path took {time.perf_counter() - t0:.1f} s; launches "
           f"{launches}")
     for name, n in launches.items():
@@ -330,6 +393,243 @@ def time_kernels(torch, db, launches, rates) -> list[dict]:
         })
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
     return rows
+
+
+# -- the transformer slice --------------------------------------------------
+
+def check_flash(torch) -> None:
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.xla_attention import attention as plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [
+        # (B, Sq, Skv, H, Hkv, D, options); the first is the forward's shape
+        (1, FWD_TOKENS, FWD_TOKENS, 32, 8, 128, {}),
+        (2, 40, 56, 4, 2, 32, {}),
+        (2, 40, 56, 4, 2, 32, dict(softcap=20.0)),
+        (2, 40, 56, 4, 2, 32, dict(window=8)),
+        (2, 40, 56, 4, 2, 32, dict(causal=False)),
+        (2, 40, 56, 4, 2, 32, dict(softcap=30.0, window=16)),
+        (1, 300, 300, 16, 16, 80, dict(causal=False)),           # hubert
+        (2, 200, 333, 8, 4, 256, dict(softcap=50.0, window=64)),  # gemma2
+        (3, 1, 777, 32, 8, 128, {}),                              # one query
+        (1, 130, 1000, 8, 1, 128, dict(window=100)),
+        (1, 70, 30, 4, 2, 64, {}),            # Sq > Skv: rows with no key
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix("torch.")
+        rtol, atol = FLASH_TOL[dt]
+        for b, sq, skv, h, hkv, d, kw in cases:
+            q = (_rand(torch, gen, b, sq, h, d, dtype=torch.float32)
+                 * FLASH_Q_STD).to(dtype)
+            k = _rand(torch, gen, b, skv, hkv, d, dtype=dtype)
+            v = _rand(torch, gen, b, skv, hkv, d, dtype=dtype)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            require(got.dtype == dtype, f"flash dtype {got.dtype}")
+            err = _close(torch, got, plain(q, k, v, **kw), rtol, atol)
+            if kw.get("causal", True) and sq > skv:
+                require(bool((got[:, :sq - skv] == 0).all()),
+                        "a row with no visible key is not zero")
+            print(f"  flash {dt:8s} B{b} Sq{sq} Skv{skv} H{h}/{hkv} D{d} "
+                  f"{kw}: max abs err {err:.3g} (rtol {rtol}, atol {atol}) "
+                  f"ok")
+        # q, k and v as strided views of one packed projection: read in
+        # place through their strides
+        packed = _rand(torch, gen, 2, 96, 8 + 2 * 2, 64, dtype=dtype)
+        packed[:, :, :8] *= FLASH_Q_STD
+        q, k, v = packed[:, :, :8], packed[:, :, 8:10], packed[:, :, 10:]
+        require(not q.is_contiguous(), "the view case lost its strides")
+        err = _close(torch, flash_attention(q, k, v, window=24),
+                     plain(q, k, v, window=24), rtol, atol)
+        print(f"  flash {dt:8s} strided views of a packed qkv: max abs err "
+              f"{err:.3g} ok")
+
+
+def _compare_logits(torch, got, want) -> dict:
+    """Kernel-path logits against plain-path logits (..., V): max abs
+    error, the least cosine similarity over positions, and the share of
+    positions whose argmax agrees."""
+    import torch.nn.functional as F
+    got, want = got.float(), want.float()
+    require(got.shape == want.shape, f"logits {tuple(got.shape)} != "
+            f"{tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), "non-finite logits")
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "min_cosine": float(F.cosine_similarity(got, want, dim=-1).min()),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+
+
+def run_forward(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, xla_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in transformer._leaves(params))
+    print(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (1, FWD_TOKENS), generator=gen,
+                           device="cuda")
+    step = make_prefill_step(cfg, impl="cuda")
+    with torch.no_grad():
+        step(params, {"tokens": tokens[:, :256]})       # warm-up
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in KERNELS}
+        require(logits.shape == (1, FWD_TOKENS, cfg.vocab),
+                f"logits shape {tuple(logits.shape)}")
+        require(launches["flash_attention"] == cfg.n_layers,
+                f"flash_attention launched {launches['flash_attention']} "
+                f"times in one forward, not once per layer ({cfg.n_layers})")
+        # the same forward with the plain attention on the card, for
+        # comparison only
+        plain_step = make_prefill_step(cfg, impl=xla_attention.attention)
+        t0 = time.perf_counter()
+        plain = plain_step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    cmp = _compare_logits(torch, logits, plain)
+    print(f"forward 1x{FWD_TOKENS}: {t_kernel:.3f} s with the kernel, "
+          f"{t_plain:.3f} s with the plain attention; launches {launches}")
+    print(f"logits vs the plain forward: max abs err {cmp['max_abs_err']:.4g}"
+          f" (max |logit| {cmp['max_abs_logit']:.4g}), min cosine "
+          f"{cmp['min_cosine']:.6f}, argmax agrees at "
+          f"{cmp['argmax_agree']:.4f} of {FWD_TOKENS} positions")
+    require(cmp["min_cosine"] >= MIN_COSINE,
+            "kernel forward drifts from the plain")
+    require(cmp["argmax_agree"] >= MIN_ARGMAX_AGREE,
+            "kernel forward's argmax disagrees")
+    del logits, plain
+    return {"cfg": cfg, "params": params, "step": step,
+            "launches": launches["flash_attention"],
+            "forward_s": t_kernel, "forward_plain_s": t_plain}
+
+
+def run_serving(torch, model) -> None:
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.serve import Request, serve_requests
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, params = model["cfg"], model["params"]
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE["prompt"]
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1)))
+               for _ in range(SERVE["n"])]
+    reqs = [Request(i, p, SERVE["max_new"]) for i, p in enumerate(prompts)]
+    for k in KERNELS:
+        k.launches = 0
+    st = obs.enable()          # the engine's spans: where the time goes
+    t0 = time.perf_counter()
+    done, stats = serve_requests(cfg, params, reqs, slots=SERVE["slots"],
+                                 max_seq=SERVE["max_seq"], impl="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    obs.disable()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    spans = {}
+    for ev in st.tracer.events():
+        if ev[0] == "X":
+            n, sec = spans.get(ev[1], (0, 0.0))
+            spans[ev[1]] = (n + 1, sec + ev[3] / 1e6)
+    require([r.status for r in done] == ["OK"] * SERVE["n"],
+            f"statuses {stats['status_counts']}")
+    require(all(len(r.out) == SERVE["max_new"] for r in done),
+            "a request ended short of max_new")
+    ttft = stats["ttft_s"]
+    print(f"{SERVE['n']} requests (prompts {[len(p) for p in prompts]}), "
+          f"{stats['generated']} tokens in {dt:.3f} s: "
+          f"{stats['generated'] / dt:.2f} tokens/s, "
+          f"{stats['prefill_tokens'] / dt:.1f} prompt tokens/s, "
+          f"{stats['decode_steps']} decode steps; TTFT p50 "
+          f"{ttft['p50']:.3f} s, p95 {ttft['p95']:.3f} s, max "
+          f"{max(r.queue_latency for r in done):.3f} s; launches {launches} "
+          f"(dense serving prefills through the decode path)")
+    pre, dec = spans["serve.prefill"], spans["serve.decode_step"]
+    print(f"host spans: {pre[0]} prefills {pre[1]:.3f} s, {dec[0]} decode "
+          f"steps {dec[1]:.3f} s ({dec[1] / dec[0] * 1e3:.1f} ms each), the "
+          f"rest {dt - pre[1] - dec[1]:.3f} s (waits for the device at each "
+          f"token read, bookkeeping)")
+    slot_prefill = make_prefill_step(cfg, impl="cuda",
+                                     cache_len=SERVE["max_seq"])
+    worst = 1.0
+    with torch.no_grad():
+        for r in done:
+            toks = torch.as_tensor(r.prompt[None], dtype=torch.int64,
+                                   device="cuda")
+            lp, _ = slot_prefill(params, toks)
+            require(int(torch.argmax(lp[0, -1])) == r.out[0],
+                    f"request {r.rid}: the engine's first token is not the "
+                    f"argmax of its prefill logits")
+            lf = model["step"](params, {"tokens": toks})
+            cmp = _compare_logits(torch, lp[0, -1], lf[0, -1])
+            worst = min(worst, cmp["min_cosine"])
+            print(f"  req {r.rid}: prompt {len(r.prompt)}, prefill vs kernel "
+                  f"forward at the last position: max abs err "
+                  f"{cmp['max_abs_err']:.4g} (max |logit| "
+                  f"{cmp['max_abs_logit']:.4g}), cosine "
+                  f"{cmp['min_cosine']:.6f}, same argmax "
+                  f"{bool(cmp['argmax_agree'])}")
+    require(worst >= MIN_COSINE, "the engine's prefill drifts from the "
+            "kernel forward")
+
+
+def time_flash(torch, launches, rates, bf16_peak) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.xla_attention import attention as plain
+
+    bw, _ = rates
+    b, s, h, hkv, d = 1, FWD_TOKENS, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    q = (_rand(torch, gen, b, s, h, d, dtype=torch.float32)
+         * FLASH_Q_STD).to(bf)
+    k = _rand(torch, gen, b, s, hkv, d, dtype=bf)
+    v = _rand(torch, gen, b, s, hkv, d, dtype=bf)
+    want = plain(q, k, v)
+    err = _close(torch, flash_attention(q, k, v), want,
+                 *FLASH_TOL["bfloat16"])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    print(f"  SDPA (the library figure, not on the path) vs the plain "
+          f"version: max abs err "
+          f"{float((lib().transpose(1, 2).float() - want.float()).abs().max()):.3g}")
+    flops = 4 * b * h * s * s * d / 2                # causal: half the square
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, o
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": KERNEL_META["flash_attention"][0],
+        "replaces": KERNEL_META["flash_attention"][1], "launches": launches,
+        "max_abs_err": err,
+        "ms": _time_ms(torch, lambda: flash_attention(q, k, v)),
+        "plain_ms": _time_ms(torch, lambda: plain(q, k, v)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": _time_ms(torch, lib), "dtype": "bfloat16",
+        "shape": {"B": b, "Sq": s, "Skv": s, "H": h, "Hkv": hkv, "D": d,
+                  "causal": True},
+    }
 
 
 if __name__ == "__main__":

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu")
+SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -33,12 +34,16 @@ LIB_NAME = "libhasco_kernels.so"
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "hasco_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "hasco_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "hasco_dot": [_P, _P, _P, _P, _LL, _LL, _I, _P],
     "hasco_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hasco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LLP,
+                              _I, _I, _F, _F, _I, _P],
 }
 
 
@@ -133,13 +138,17 @@ def dtype_code(dtype) -> int:
     return DTYPE_CODES[name]
 
 
-def check_operands(*ts) -> None:
-    """Operands a kernel takes: CUDA tensors, on one card, contiguous."""
+def check_operands(*ts, contiguous: bool = True) -> None:
+    """Operands a kernel takes: CUDA tensors, on one card, contiguous
+    (or, with ``contiguous=False``, with a contiguous last dim: the kernel
+    reads the other dims through their strides)."""
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"kernel operands must all be CUDA tensors, got "
                              f"{[str(x.device) for x in ts]}")
         if t.device != ts[0].device:
             raise ValueError("kernel operands lie on different cards")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+        if not contiguous and t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError("kernel operands need a contiguous last dim")

@@ -1,4 +1,4 @@
-"""Dispatch wrappers for the intrinsic kernels.
+"""Dispatch wrappers for the intrinsic kernels and attention.
 
 Every op takes ``implementation``: 'cuda' (the hand-written kernel; CUDA
 tensors only) or 'torch' (the plain PyTorch version; CPU tensors only).  A
@@ -19,9 +19,10 @@ import torch
 
 from . import conv2d as _conv2d
 from . import dotprod as _dotprod
+from . import flash_attention as _flash
 from . import gemm as _gemm
 from . import gemv as _gemv
-from . import ref
+from . import ref, xla_attention
 
 # where each implementation runs: the kernels on the card, the plain
 # versions on the CPU (the tuner's backends are these names too)
@@ -200,6 +201,20 @@ def conv2d(a, w, *, bk: int | None = None, implementation: str = "cuda"):
     blk = resolve_blocks("conv2d", (k, c, h - r + 1, wd - s + 1, r, s),
                          a.dtype, implementation, bk=bk)
     return _conv2d.conv2d(a, w, **blk)
+
+
+def attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
+              window: int = 0, scale: float | None = None,
+              implementation: str = "cuda"):
+    """q (B, Sq, H, D), k/v (B, Skv, Hkv, D) -> (B, Sq, H, D).  'cuda' runs
+    the flash kernel, 'torch' the chunked plain version.  No block shape is
+    taken: the CUDA kernel's tiles are fixed (64 by 64) and the plain
+    version walks 256-key chunks, as the reference's 'xla' implementation
+    does."""
+    kw = dict(causal=causal, softcap=softcap, window=window, scale=scale)
+    if not _check(implementation, q, k, v):
+        return xla_attention.attention(q, k, v, **kw)
+    return _flash.flash_attention(q, k, v, **kw)
 
 
 def tuned_matmul(a, b, app: str = "default", implementation: str = "cuda"):

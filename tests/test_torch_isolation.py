@@ -50,6 +50,8 @@ print("imported", len(sys.argv) - 1)
 def test_every_port_module_imports_without_jax_or_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.core" in mods
+    assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},

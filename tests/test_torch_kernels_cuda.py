@@ -8,13 +8,19 @@ on the card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: float32 rtol 1e-5 (conv
-1e-4), bfloat16 rtol 5e-2, with atol ten times rtol (conv 2e-3).
+1e-4), bfloat16 rtol 5e-2, with atol ten times rtol (conv 2e-3).  Flash
+attention: float32 rtol/atol 1e-3 (``tests/test_kernels.py:78``); bfloat16
+rtol 1e-2, one bfloat16 ulp of the output (kernel and plain version are both
+float32 inside and round once), with atol 1e-3 for outputs near 0.  Its q is
+drawn with std 3, so the scores have std 3 and each row's output, led by a
+few keys, is O(1): a dropped or misweighted key tile shows far above atol.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import conv2d, dot, gemm, gemv, ops, ref
+from repro_torch.kernels import (conv2d, dot, flash_attention, gemm, gemv,
+                                 ops, ref, xla_attention)
 
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -107,3 +113,61 @@ def test_ops_dispatch_on_the_card(cuda):
         gemm(a, b.cpu())                            # operands on two devices
     with pytest.raises(ValueError, match="contiguous"):
         gemm(a.t().contiguous().t(), b)             # a strided view
+
+
+FLASH_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 1e-3)}
+Q_STD = 3.0
+FLASH_CASES = [
+    # (B, Sq, Skv, H, Hkv, D, options)
+    (2, 40, 56, 4, 2, 32, {}),
+    (2, 40, 56, 4, 2, 32, dict(softcap=20.0)),
+    (2, 40, 56, 4, 2, 32, dict(window=8)),
+    (2, 40, 56, 4, 2, 32, dict(causal=False)),
+    (2, 40, 56, 4, 2, 32, dict(softcap=30.0, window=16)),
+    (1, 129, 129, 8, 8, 80, dict(causal=False)),
+    (1, 100, 170, 4, 2, 256, dict(softcap=50.0, window=33)),
+    (3, 1, 200, 8, 2, 128, {}),
+    (1, 64, 64, 2, 1, 1, dict(scale=0.7)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    b, sq, skv, h, hkv, d, kw = case
+    q = (_on(cuda, b, sq, h, d) * Q_STD).to(DTYPES[dtype])
+    k = _on(cuda, b, skv, hkv, d, dtype=DTYPES[dtype])
+    v = _on(cuda, b, skv, hkv, d, dtype=DTYPES[dtype])
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _close(got, xla_attention.attention(q, k, v, **kw), *FLASH_TOL[dtype])
+    if kw.get("causal", True) and "softcap" not in kw and "scale" not in kw:
+        _close(ops.attention(q, k, v, implementation="cuda", **kw),
+               ref.attention_ref(q, k, v, **kw), *FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_rows_without_a_key_are_zero(cuda):
+    q = _on(cuda, 1, 70, 4, 64) * 0.5
+    k = _on(cuda, 1, 30, 2, 64) * 0.5
+    got = flash_attention(q, k, k)
+    assert torch.equal(got[:, :40], torch.zeros_like(got[:, :40]))
+    _close(got, xla_attention.attention(q, k, k), *FLASH_TOL["float32"])
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views(cuda):
+    packed = _on(cuda, 2, 96, 12, 64)
+    q, k, v = packed[:, :, :8], packed[:, :, 8:10], packed[:, :, 10:]
+    assert not q.is_contiguous()
+    _close(flash_attention(q, k, v, window=24),
+           xla_attention.attention(q, k, v, window=24), *FLASH_TOL["float32"])
+    with pytest.raises(ValueError, match="last dim"):
+        flash_attention(q.transpose(1, 3), k.transpose(1, 3),
+                        v.transpose(1, 3))
+    with pytest.raises(ValueError, match="D <= 256"):
+        big = _on(cuda, 1, 4, 1, 264)
+        flash_attention(big, big, big)
