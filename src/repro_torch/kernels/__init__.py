@@ -1,24 +1,32 @@
 """Hand-written Hopper (sm_90a) CUDA kernels: the paper's four hardware
-intrinsics and the transformer family's attention, each with a plain
-PyTorch version and dispatch in ``ops.py``.
+intrinsics, the transformer family's attention and the recurrent families'
+WKV6 and SSD recurrences, each with a plain PyTorch version and dispatch in
+``ops.py``.
 
   gemm / gemv / dotprod / conv2d — wrappers over ``csrc/*.cu``, built at
                                    first use by ``cuda_lib``
   flash_attention                — ``csrc/flash_attention.cu``; its plain
                                    version is ``xla_attention.attention``
+  rwkv6 / mamba2                 — ``csrc/rwkv6.cu``, ``csrc/mamba2.cu``;
+                                   their plain versions are in
+                                   ``xla_linear``
+  plain                          — the plain versions on any device, the
+                                   ops of a model run with ``impl=plain``
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
-from . import ops, ref
+from . import ops, plain, ref
 from .conv2d import conv2d
 from .dotprod import dot
 from .flash_attention import flash_attention
 from .gemm import gemm
 from .gemv import gemv
+from .mamba2 import mamba2
+from .rwkv6 import rwkv6
 
 INTRINSICS = (gemm, gemv, dot, conv2d)
-KERNELS = (*INTRINSICS, flash_attention)
+KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2)
 
 __all__ = ["INTRINSICS", "KERNELS", "conv2d", "dot", "flash_attention",
-           "gemm", "gemv", "ops", "ref"]
+           "gemm", "gemv", "mamba2", "ops", "plain", "ref", "rwkv6"]

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "rwkv6.cu", "mamba2.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,6 +44,10 @@ SIGNATURES = {
     "hasco_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hasco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LLP,
                               _I, _I, _F, _F, _I, _P],
+    "hasco_rwkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LLP,
+                    _I, _P],
+    "hasco_mamba2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LLP, _I,
+                     _P],
 }
 
 

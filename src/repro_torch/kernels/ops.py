@@ -1,4 +1,5 @@
-"""Dispatch wrappers for the intrinsic kernels and attention.
+"""Dispatch wrappers for the intrinsic kernels, attention and the
+recurrences (RWKV-6, Mamba-2).
 
 Every op takes ``implementation``: 'cuda' (the hand-written kernel; CUDA
 tensors only) or 'torch' (the plain PyTorch version; CPU tensors only).  A
@@ -22,7 +23,9 @@ from . import dotprod as _dotprod
 from . import flash_attention as _flash
 from . import gemm as _gemm
 from . import gemv as _gemv
-from . import ref, xla_attention
+from . import mamba2 as _mamba2
+from . import ref, xla_attention, xla_linear
+from . import rwkv6 as _rwkv6
 
 # where each implementation runs: the kernels on the card, the plain
 # versions on the CPU (the tuner's backends are these names too)
@@ -215,6 +218,29 @@ def attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     if not _check(implementation, q, k, v):
         return xla_attention.attention(q, k, v, **kw)
     return _flash.flash_attention(q, k, v, **kw)
+
+
+def rwkv6(r, k, v, w, u, state=None, *, implementation: str = "cuda"):
+    """RWKV-6 WKV: r/k/w (B, T, H, Dk), v (B, T, H, Dv), u (H, Dk), state
+    (B, H, Dk, Dv) float32 or None -> (out in v's dtype, final state
+    float32), any T >= 1.  'cuda' runs the kernel (chunks of 16), 'torch'
+    the plain chunked version (chunks of 32); neither chunk is a knob."""
+    ts = (r, k, v, w, u) + (() if state is None else (state,))
+    if not _check(implementation, *ts):
+        return xla_linear.rwkv6(r, k, v, w, u, state)
+    return _rwkv6.rwkv6(r, k, v, w, u, state)
+
+
+def mamba2(x, a, b, c, state=None, *, implementation: str = "cuda"):
+    """Mamba-2 SSD: x (B, T, H, P), a (B, T, H), b/c (B, T, H, N) (stride 0
+    over H allowed), state (B, H, N, P) float32 or None -> (y in x's
+    dtype, final state float32), any T >= 1.  'cuda' runs the kernel
+    (chunks of 64), 'torch' the plain chunked version (chunks of 128);
+    neither chunk is a knob."""
+    ts = (x, a, b, c) + (() if state is None else (state,))
+    if not _check(implementation, *ts):
+        return xla_linear.mamba2(x, a, b, c, state)
+    return _mamba2.mamba2(x, a, b, c, state)
 
 
 def tuned_matmul(a, b, app: str = "default", implementation: str = "cuda"):

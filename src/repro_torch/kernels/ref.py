@@ -1,6 +1,6 @@
 """Plain PyTorch oracles of the kernels (the ``ref.py`` contract of the
-reference package, ``repro/kernels/ref.py``): the four intrinsics and
-attention.
+reference package, ``repro/kernels/ref.py``): the four intrinsics,
+attention, and the RWKV-6 and Mamba-2 recurrences.
 
 They are the port's oracles: simple, unfused, float32 inside, with the same
 dtype contracts as the reference.  The CPU tests run them, and the kernel
@@ -70,3 +70,53 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 (Finch) WKV oracle: the strict sequential recurrence.
+
+    r/k/w: (B, T, H, Dk), w the per-channel log-decay (<= 0); v: (B, T, H,
+    Dv); u: (H, Dk) bonus; state: (B, H, Dk, Dv) or None.  Returns (out
+    (B, T, H, Dv) in v's dtype, final state in float32).
+
+      o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(e^{w_t}) S_{t-1} + k_t v_t^T
+    """
+    b, t, h, dk = k.shape
+    dv = v.shape[-1]
+    s = (torch.zeros((b, h, dk, dv), device=v.device) if state is None
+         else state.float())
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]      # (B,H,Dk,Dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, i], s + uf * kv))
+        s = torch.exp(wf[:, i])[..., None] * s + kv
+    return torch.stack(outs, dim=1).to(v.dtype), s
+
+
+def mamba2_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, state: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD oracle: the sequential recurrence.
+
+    x: (B, T, H, P) head inputs; a: (B, T, H) per-head log-decay (<= 0);
+    b/c: (B, T, H, N) input/output projections; state: (B, H, N, P) or
+    None.  Returns (y (B, T, H, P) in x's dtype, final state in float32).
+
+      h_t = e^{a_t} h_{t-1} + b_t x_t^T;  y_t = c_t^T h_t
+    """
+    bs, t, h, p = x.shape
+    n = b.shape[-1]
+    s = (torch.zeros((bs, h, n, p), device=x.device) if state is None
+         else state.float())
+    xf, af, bf, cf = (z.float() for z in (x, a, b, c))
+    ys = []
+    for i in range(t):
+        s = torch.exp(af[:, i])[..., None, None] * s \
+            + bf[:, i, :, :, None] * xf[:, i, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, i], s))
+    return torch.stack(ys, dim=1).to(x.dtype), s

@@ -3,15 +3,15 @@
 Port of ``repro/models/layers.py``.  Conventions kept from it:
   * params are nested dicts of tensors with the reference's names and
     layouts (``x @ w`` weights are (in, out)), so the reference's params,
-    as numpy arrays, load through ``transformer.params_from_numpy``;
+    as numpy arrays, load through ``tree.params_from_numpy``;
   * ``tp`` pads heads and vocab exactly as the reference does (1 on one
     card);
-  * ``impl`` selects the attention of the full-sequence forward: 'cuda'
-    (the flash kernel; CUDA tensors), 'torch' (the plain version; CPU
-    tensors), or a callable taking ``(q, k, v, *, causal, softcap,
-    window)``, such as ``xla_attention.attention`` to run the plain version
-    on the card for comparison.  The decode path is plain tensor code
-    either way, as in the reference.
+  * ``impl`` selects the kernels of every family (:func:`op`): 'cuda'
+    (the hand-written kernels; CUDA tensors), 'torch' (the plain versions;
+    CPU tensors), or a namespace of functions, such as ``kernels.plain``
+    to run the plain versions on the card for comparison.  The
+    transformer's decode path is plain tensor code either way, as in the
+    reference.
   * float32 upcasts and downcasts sit exactly where the reference has them
     (norms, rope, softcap, attention), so bfloat16 runs round alike.
 
@@ -35,6 +35,25 @@ from .config import ModelConfig
 Params = dict[str, Any]
 
 _DEFERRED = "not ported yet (ROADMAP A.5: {what})"
+
+
+def deferred(item: str, what: str):
+    """A stand-in for a function of the reference not ported yet: calling
+    it raises, naming the ROADMAP item that holds it."""
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"not ported yet (ROADMAP {item}: {what})")
+    return fn
+
+
+def op(impl, name: str):
+    """The function that runs kernel op ``name`` ('attention', 'rwkv6',
+    'mamba2') under ``impl``: a string is an implementation of
+    ``kernels.ops`` ('cuda' or 'torch', which check the tensors' device);
+    anything else is a namespace whose attribute ``name`` is used as it
+    is (``kernels.plain``)."""
+    if isinstance(impl, str):
+        return partial(getattr(ops, name), implementation=impl)
+    return getattr(impl, name)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype,
@@ -231,10 +250,8 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             out = _decode_attention(q, ck, cv, cfg, _to_device(last, dev),
                                     window)
     else:
-        attend = impl if callable(impl) else partial(ops.attention,
-                                                     implementation=impl)
-        out = attend(q, k, v, causal=cfg.causal, softcap=cfg.attn_softcap,
-                     window=window)
+        out = op(impl, "attention")(q, k, v, causal=cfg.causal,
+                                    softcap=cfg.attn_softcap, window=window)
 
     out = out.reshape(x.shape[0], x.shape[1], h * hd)
     return out @ params["wo"], cache

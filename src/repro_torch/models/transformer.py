@@ -11,6 +11,7 @@ Not ported yet (ROADMAP A.5): MoE blocks, the internvl2 patch prefix
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -18,6 +19,8 @@ import torch
 
 from . import layers as L
 from .config import ModelConfig
+from .tree import params_from_numpy  # noqa: F401  (re-exported for callers)
+from .tree import layer, pad_rows, stacked_init, tree_map
 
 Params = dict[str, Any]
 
@@ -71,40 +74,6 @@ def _block(p: Params, cfg: ModelConfig, x, *, positions, tp, impl, window,
 # Whole model
 # ---------------------------------------------------------------------------
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree, as views (in-place writes land in the
-    stack)."""
-    return _map(lambda t: t[i], tree)
-
-
-def _stacked_init(gen, cfg: ModelConfig, n: int, tp: int, dtype,
-                  device) -> Params:
-    """``n`` blocks stacked on a leading axis, drawn layer by layer into the
-    stack (no second copy of the weights is ever held)."""
-    first = _block_init(gen, cfg, tp, dtype, device)
-    stack = _map(lambda t: t.new_empty((n, *t.shape)), first)
-    for i in range(n):
-        block = first if i == 0 else _block_init(gen, cfg, tp, dtype, device)
-        for dst, src in zip(_leaves(stack), _leaves(block)):
-            dst[i].copy_(src)
-    return stack
-
-
-def _leaves(tree):
-    """Leaves of a params tree, in insertion order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
          device="cuda") -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
@@ -115,13 +84,13 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
     device = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
+    block = partial(_block_init, gen, cfg, tp, dtype, device)
     if cfg.alt_local_global:
         n = cfg.n_layers // 2
-        layers = {"local": _stacked_init(gen, cfg, n, tp, dtype, device),
-                  "global": _stacked_init(gen, cfg, n, tp, dtype, device)}
+        layers = {"local": stacked_init((n,), block),
+                  "global": stacked_init((n,), block)}
     else:
-        layers = {"all": _stacked_init(gen, cfg, cfg.n_layers, tp, dtype,
-                                       device)}
+        layers = {"all": stacked_init((cfg.n_layers,), block)}
     p: Params = {
         "embed": L.embed_init(gen, cfg, tp, dtype, device),
         "layers": layers,
@@ -133,20 +102,6 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
                                               cfg.d_model), 0.02, dtype,
                                         device)}
     return p
-
-
-def params_from_numpy(tree, device="cuda") -> Params:
-    """A params tree of numpy arrays (the reference's params after
-    ``np.asarray`` on each leaf) as the port's tensors on ``device``, copied.
-    bfloat16 arrays (numpy's ``ml_dtypes`` extension type) keep their
-    bits."""
-    def conv(a):
-        a = np.array(a)             # a copy: never alias the caller's buffer
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.int16)).view(
-                torch.bfloat16).to(device)
-        return torch.from_numpy(a).to(device)
-    return _map(conv, tree)
 
 
 def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
@@ -161,8 +116,8 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
     else:
         order = [("all", i, cfg.local_window) for i in range(cfg.n_layers)]
     for name, i, window in order:
-        cache = None if caches is None else _layer(caches[name], i)
-        x, _ = _block(_layer(params["layers"][name], i), cfg, x,
+        cache = None if caches is None else layer(caches[name], i)
+        x, _ = _block(layer(params["layers"][name], i), cfg, x,
                       window=window, cache=cache, **kw)
     return x, caches
 
@@ -191,7 +146,7 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
 
 def _stack_of(cfg: ModelConfig, n: int, batch: int, seq: int, tp: int,
               dtype, device) -> Params:
-    return _map(lambda x: torch.zeros((n, *x.shape), dtype=x.dtype,
+    return tree_map(lambda x: torch.zeros((n, *x.shape), dtype=x.dtype,
                                       device=device),
                 L.init_kv_cache(cfg, batch, seq, tp, dtype, device="meta"))
 
@@ -236,8 +191,8 @@ def pack_slot_cache(cfg: ModelConfig, pcache: Params, max_seq: int,
 
     def one(tree, target, use_ring):
         if use_ring:
-            return _map(lambda x: _fold_ring(x, target, seq_len), tree)
-        return _map(lambda x: _pad_rows(x, target), tree)
+            return tree_map(lambda x: _fold_ring(x, target, seq_len), tree)
+        return tree_map(lambda x: pad_rows(x, target), tree)
 
     if cfg.alt_local_global:
         local_seq = min(max_seq, cfg.local_window or max_seq)
@@ -245,14 +200,6 @@ def pack_slot_cache(cfg: ModelConfig, pcache: Params, max_seq: int,
                              local_seq == cfg.local_window),
                 "global": one(pcache["global"], max_seq, False)}
     return {"all": one(pcache["all"], max_seq, False)}
-
-
-def _pad_rows(leaf: torch.Tensor, target: int) -> torch.Tensor:
-    if leaf.shape[2] == target:
-        return leaf
-    out = leaf.new_zeros((*leaf.shape[:2], target, *leaf.shape[3:]))
-    out[:, :, :leaf.shape[2]] = leaf
-    return out
 
 
 def _fold_ring(leaf: torch.Tensor, window: int,

@@ -51,7 +51,10 @@ def test_every_port_module_imports_without_jax_or_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.core" in mods
     assert {"repro_torch.launch.serve", "repro_torch.models.transformer",
-            "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.models.rwkv6", "repro_torch.models.zamba2",
+            "repro_torch.kernels.rwkv6", "repro_torch.kernels.mamba2",
+            "repro_torch.kernels.xla_linear"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},

@@ -14,13 +14,20 @@ rtol 1e-2, one bfloat16 ulp of the output (kernel and plain version are both
 float32 inside and round once), with atol 1e-3 for outputs near 0.  Its q is
 drawn with std 3, so the scores have std 3 and each row's output, led by a
 few keys, is O(1): a dropped or misweighted key tile shows far above atol.
+RWKV-6 and Mamba-2 against their plain chunked versions: float32 rtol/atol
+1e-4 (the same float32 math summed in other orders and chunks), bfloat16
+outputs rtol 1e-2 / atol 1e-3 (one bfloat16 ulp: both round a float32
+result once), final states float32 at 1e-4 in both.  Their inputs are
+scaled so outputs are O(1), and the weak-decay cases make the state carried
+across chunks dominate, so a dropped inter-chunk term shows.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (conv2d, dot, flash_attention, gemm, gemv,
-                                 ops, ref, xla_attention)
+                                 mamba2, ops, ref, rwkv6, xla_attention,
+                                 xla_linear)
 
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -171,3 +178,124 @@ def test_flash_attention_reads_strided_views(cuda):
     with pytest.raises(ValueError, match="D <= 256"):
         big = _on(cuda, 1, 4, 1, 264)
         flash_attention(big, big, big)
+
+
+LIN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
+STATE_TOL = (1e-4, 1e-4)
+RWKV6_CASES = [
+    # (B, T, H, Dk, Dv, decay, state): the forward's head shape, one token,
+    # a chunk -1 and +1, a long sequence, Dk != Dv, Dk 128
+    (1, 256, 4, 64, 64, "weak", True),
+    (2, 1, 3, 64, 64, "strong", True),
+    (2, 15, 2, 32, 48, "weak", False),
+    (1, 17, 2, 64, 64, "strong", True),
+    (1, 1000, 2, 64, 64, "weak", True),
+    (2, 100, 3, 16, 40, "strong", False),
+    (1, 70, 2, 128, 16, "weak", True),
+]
+MAMBA2_CASES = [
+    # (B, T, H, P, N, decay, state, b/c shared over heads by stride 0)
+    (1, 256, 4, 64, 64, "weak", True, True),
+    (2, 1, 3, 64, 64, "strong", True, False),
+    (2, 63, 2, 64, 64, "weak", False, True),
+    (1, 65, 2, 32, 16, "strong", True, False),
+    (1, 1000, 2, 64, 64, "weak", True, True),
+    (2, 100, 3, 48, 24, "strong", False, False),
+    (1, 70, 2, 16, 128, "weak", True, True),
+]
+
+
+def _rwkv6_inputs(dev, b, t, h, dk, dv, decay, state, dtype):
+    r = _on(dev, b, t, h, dk) * dk ** -0.5
+    k = _on(dev, b, t, h, dk) * dk ** -0.5
+    v, u = _on(dev, b, t, h, dv), _on(dev, h, dk) * 0.5
+    w = -torch.exp((-6.0 if decay == "weak" else 0.0)
+                   + 0.5 * _on(dev, b, t, h, dk))
+    s0 = _on(dev, b, h, dk, dv) * dk ** -0.5 if state else None
+    return (*(x.to(dtype) for x in (r, k, v, w, u)), s0)
+
+
+def _mamba2_inputs(dev, b, t, h, p, n, decay, state, shared, dtype):
+    x = _on(dev, b, t, h, p)
+    a = (-1e-3 * torch.exp(0.1 * _on(dev, b, t, h)) if decay == "weak"
+         else -torch.exp(0.5 * _on(dev, b, t, h)))
+    hb = 1 if shared else h
+    bb, cc = ((_on(dev, b, t, hb, n) * n ** -0.5).to(dtype)
+              .expand(b, t, h, n) for _ in range(2))
+    s0 = _on(dev, b, h, n, p) * n ** -0.5 if state else None
+    return x.to(dtype), a.to(dtype), bb, cc, s0
+
+
+def _check_recurrence(kernel, plain, ins, dtype):
+    before = kernel.launches
+    out, st = kernel(*ins)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want_out, want_st = plain(*ins)
+    assert out.dtype == DTYPES[dtype] and st.dtype == torch.float32
+    assert float(want_out.float().abs().max()) > 0.2   # O(1), not vanishing
+    _close(out, want_out, *LIN_TOL[dtype])
+    _close(st, want_st, *STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", RWKV6_CASES)
+def test_rwkv6_kernel_matches_plain(cuda, dtype, case):
+    ins = _rwkv6_inputs(cuda, *case, DTYPES[dtype])
+    _check_recurrence(rwkv6, xla_linear.rwkv6, ins, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA2_CASES)
+def test_mamba2_kernel_matches_plain(cuda, dtype, case):
+    ins = _mamba2_inputs(cuda, *case, DTYPES[dtype])
+    if case[-1]:
+        assert ins[2].stride(2) == 0          # read in place, never copied
+    _check_recurrence(mamba2, xla_linear.mamba2, ins, dtype)
+
+
+@pytest.mark.cuda
+def test_recurrence_kernels_stream_and_read_strided_views(cuda):
+    """Two chained half calls equal one whole call; r/k/v/w read in place
+    as views of one packed projection."""
+    packed = _on(cuda, 1, 300, 2, 4 * 64) * 0.125
+    r, k, v = packed[..., :64], packed[..., 64:128], packed[..., 128:192] * 8
+    w = -torch.exp(-6.0 + 0.5 * packed[..., 192:] * 8)
+    u = _on(cuda, 2, 64) * 0.5
+    assert not r.is_contiguous()
+    whole = rwkv6(r, k, v, w, u)
+    _close(whole[0], xla_linear.rwkv6(r, k, v, w, u)[0], *LIN_TOL["float32"])
+    o1, s1 = rwkv6(r[:, :131], k[:, :131], v[:, :131], w[:, :131], u)
+    o2, s2 = rwkv6(r[:, 131:], k[:, 131:], v[:, 131:], w[:, 131:], u, s1)
+    _close(torch.cat([o1, o2], 1), whole[0], *LIN_TOL["float32"])
+    _close(s2, whole[1], *STATE_TOL)
+    x, a, b, c, _ = _mamba2_inputs(cuda, 1, 300, 2, 64, 64, "weak", False,
+                                   True, torch.float32)
+    whole = mamba2(x, a, b, c)
+    y1, h1 = mamba2(x[:, :131], a[:, :131], b[:, :131], c[:, :131])
+    y2, h2 = mamba2(x[:, 131:], a[:, 131:], b[:, 131:], c[:, 131:], h1)
+    _close(torch.cat([y1, y2], 1), whole[0], *LIN_TOL["float32"])
+    _close(h2, whole[1], *STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_recurrence_kernels_refuse_what_they_do_not_take(cuda):
+    r, k, v, w, u, s0 = _rwkv6_inputs(cuda, 1, 8, 2, 16, 16, "strong", True,
+                                      torch.float32)
+    with pytest.raises(ValueError, match="cpu"):
+        ops.rwkv6(r, k, v, w, u, s0, implementation="torch")
+    strided = lambda t: t.transpose(2, 3).contiguous().transpose(2, 3)  # noqa
+    with pytest.raises(ValueError, match="last dim"):
+        rwkv6(strided(r), k, v, w, u)
+    with pytest.raises(ValueError, match="Dk <= 128"):
+        big = _on(cuda, 1, 4, 1, 136)
+        rwkv6(big, big, big, big, _on(cuda, 1, 136))
+    x, a, b, c, h0 = _mamba2_inputs(cuda, 1, 8, 2, 16, 16, "strong", True,
+                                    False, torch.float32)
+    with pytest.raises(ValueError, match="different cards|CUDA"):
+        mamba2(x, a, b, c.cpu(), h0)
+    with pytest.raises(ValueError, match="N <= 128"):
+        nb = _on(cuda, 1, 8, 2, 136)
+        mamba2(x, a, nb, nb)

@@ -4,8 +4,9 @@ Three gates, in the discipline of ``tests/test_serve_engine.py``:
 
   * in float32, with the reference's weights carried over, the port's
     ``ServeEngine`` emits the same tokens as the reference's engine under
-    the burst and trickle admission patterns (qwen3 and the gemma2 ring
-    case whose prompts overflow the window);
+    the burst and trickle admission patterns (qwen3, the gemma2 ring case
+    whose prompts overflow the window, and the recurrent rwkv6 and zamba2,
+    whose prompts of 2-8 tokens the reference's engine can prefill);
   * the port's engine is bit-identical to its own sequential
     single-request runs and to a teacher-forced token-by-token decode that
     shares nothing with the admission path;
@@ -105,10 +106,12 @@ def _teacher_forced(cfg, params, prompts):
     return out
 
 
-CASES = [("qwen3-8b", ()), ("gemma2-2b", GEMMA_RING)]
+CASES = [("qwen3-8b", ()), ("gemma2-2b", GEMMA_RING), ("rwkv6-3b", ()),
+         ("zamba2-2.7b", ())]
+IDS = ["qwen3-8b", "gemma2-ring", "rwkv6-3b", "zamba2-2.7b"]
 
 
-@pytest.mark.parametrize("arch,over", CASES, ids=["qwen3-8b", "gemma2-ring"])
+@pytest.mark.parametrize("arch,over", CASES, ids=IDS)
 def test_engine_is_token_identical_to_the_reference_engine(arch, over):
     cfg, jcfg, jparams, params = _model(arch, over)
     prompts = _prompts(cfg.vocab, 6, seed=1)
@@ -121,7 +124,7 @@ def test_engine_is_token_identical_to_the_reference_engine(arch, over):
         assert mine == ref, f"{arch} diverged under {pattern}"
 
 
-@pytest.mark.parametrize("arch,over", CASES, ids=["qwen3-8b", "gemma2-ring"])
+@pytest.mark.parametrize("arch,over", CASES, ids=IDS)
 def test_engine_is_bit_identical_to_its_sequential_and_teacher_forced_runs(
         arch, over):
     cfg, _, _, params = _model(arch, over)
@@ -254,8 +257,9 @@ def test_encoder_and_unported_options_raise():
             serve.main(["--smoke", "--device", "cpu", flag])
 
 
-def test_cli_serves_on_the_cpu(capsys):
-    serve.main(["--smoke", "--device", "cpu", "--requests", "2",
-                "--max-new", "3"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b"])
+def test_cli_serves_on_the_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                "2", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "2 requests, 6 tokens" in out and "status: OK=2" in out

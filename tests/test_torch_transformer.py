@@ -23,7 +23,7 @@ from repro.models import family_module as jfamily
 from repro.models import layers as JL
 from repro.models import reduced as jreduced
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.kernels import xla_attention
+from repro_torch.kernels import plain
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import family_module, reduced
 from repro_torch.models import layers as L
@@ -112,10 +112,9 @@ def test_forward_matches_reference(arch, over):
     for impl in ("interpret", "xla"):
         _close(got, jmod.forward(jparams, jcfg, jin, tp=1, impl=impl))
     # the prefill-scoring step is this forward, and so is the forward given
-    # the plain attention as a callable (how the card compares the two)
+    # the plain versions as a namespace (how the card compares the two)
     _close(make_prefill_step(cfg, impl="torch")(params, tin), got, 0, 0)
-    _close(make_prefill_step(cfg, impl=xla_attention.attention)(params, tin),
-           got, 0, 0)
+    _close(make_prefill_step(cfg, impl=plain)(params, tin), got, 0, 0)
 
 
 def test_layer_numerics_round_like_the_reference_in_bfloat16():
@@ -187,8 +186,14 @@ def test_idle_slot_write_past_the_cache_is_dropped():
     mod, jmod = family_module(cfg), jfamily(jcfg)
     max_seq = 8
     cache = mod.init_cache(cfg, 2, max_seq, device="cpu")
+    # seeded: the second layer's new K/V depend on the first layer's
+    # attention over this content, and their bfloat16 rounding is held
+    # exactly to the reference's, so the content must not change from run
+    # to run (an unseeded draw made the test depend on the tests before it)
+    rng = np.random.default_rng(0)
     for leaf in (cache["all"]["k"], cache["all"]["v"]):
-        leaf.copy_(torch.randn(leaf.shape).to(leaf.dtype))
+        leaf.copy_(torch.from_numpy(rng.standard_normal(leaf.shape)
+                                    .astype(np.float32)).to(leaf.dtype))
     before = {n: t.clone() for n, t in cache["all"].items()}
     toks = np.array([[5, 6, 7], [8, 9, 10]])
     pos = np.array([2, max_seq])        # slot 1 writes rows 8..10: all past
@@ -250,8 +255,6 @@ def test_params_from_numpy_keeps_bfloat16_bits():
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        family_module(get_config("rwkv6-3b"))
     with pytest.raises(NotImplementedError, match="MoE"):
         T.init(reduced(get_config("granite-moe-3b-a800m")), device="cpu")
     with pytest.raises(NotImplementedError, match="patch prefix"):
