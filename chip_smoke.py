@@ -13,21 +13,28 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and at ragged shapes with odd blocks, float32 and
      bfloat16, with the tolerances of ``tests/test_kernels.py``; ``dot``
-     must give the same bits twice;
+     and ``gemv`` must give the same bits twice (``gemv`` also at the block
+     that once gave one CTA, and at K not a multiple of 8);
   4. the main path: ``python -m repro_torch.tuner ... --measure --backend
      cuda`` for two applications at the paper's sizes into a fresh tuning
      DB, with every kernel's launch count read from that run alone; then a
      tuned ``ops.matmul`` resolves its blocks from the DB;
   5. each kernel timed at the main path's shape and committed blocks beside
-     its bound, its plain version and the PyTorch library call;
+     its bound, its plain version and the PyTorch library call, called
+     back to back from Python and replayed from a CUDA graph (device time
+     without the host's launch cost), with the host time a call; gemv also
+     in bfloat16;
   6. the flash attention kernel against its plain version on the card,
      float32 and bfloat16, at the forward's shape and at ragged ones (Sq <
      Skv and Sq > Skv, head dims 80/128/256, GQA, soft-cap, window, strided
-     views);
+     views), printing the route each case took: every bfloat16 case that
+     the route rule admits must take the tensor-core route, and a
+     misaligned view the SIMT route;
   7. the transformer slice's full-sequence forward: qwen3-8b at full width
      and depth (random weights from a seeded generator, bfloat16) over
      1 x 4096 tokens through ``make_prefill_step``, with the kernel's
-     launches counted from that run alone (one per layer), against the same
+     launches counted from that run alone (one per layer, every one on the
+     tensor-core route), against the same
      forward on the plain versions (``impl=kernels.plain``); beside it the
      plain forward with other chunk sizes (the model's own sensitivity to
      summation order), and a forward in which every kernel call is checked
@@ -37,8 +44,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      new tokens each); every request must end OK, and each request's
      prefill logits (what the engine's first token came from) must agree
      with the kernel forward's at the last prompt position;
-  9. the flash kernel timed at the forward's shape beside its bound, its
-     plain version and ``scaled_dot_product_attention``;
+  9. the flash kernel timed at qwen3-8b's and zamba2-2.7b's forward shapes
+     beside its bound, its plain version, ``scaled_dot_product_attention``
+     and its own SIMT route on the same inputs;
  10. the rwkv6 and mamba2 kernels against their plain versions on the
      card, float32 and bfloat16, with and without a state: the forwards'
      shapes, ragged T (1, a chunk -1 and +1, 1000), Dk != Dv and N != P, b/c
@@ -53,7 +61,8 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      forward's, and one prompt prefilled in two halves (the state carried
      through ``decode_step``) agrees with it prefilled whole;
  13. zamba2-2.7b's forward as in phase 11 (one mamba2 launch per Mamba
-     layer, one flash_attention launch per shared-block call);
+     layer, one flash_attention launch per shared-block call, on the
+     tensor-core route);
  14. zamba2-2.7b served as in phase 12;
  15. rwkv6 and mamba2 timed at the forwards' shapes beside their bounds and
      plain versions (no single PyTorch call computes either).
@@ -118,10 +127,14 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:108"),
 }
 
-# flash attention (rtol, atol): float32 is tests/test_kernels.py:78's.
-# bfloat16: kernel and plain version are both float32 inside and round the
-# output once, so they may differ by one bfloat16 ulp, at most 2^-7 of the
-# value: rtol 1e-2 covers it, and atol only has to cover outputs near 0.
+# flash attention (rtol, atol): float32 is tests/test_kernels.py:78's (the
+# SIMT route, float32 FMA).  bfloat16 takes the tensor-core route: its
+# products of bfloat16 values are exact in float32 and P is rounded to two
+# bfloat16 terms (P_hi + P_lo, ~16 bits), so it is as close to float32 as
+# the plain version is; both round the output once, so they may differ by
+# one bfloat16 ulp, at most 2^-7 of the value: rtol 1e-2 covers it, and
+# atol only has to cover outputs near 0 (P in one bfloat16 term would move
+# near-cancelling outputs past it).
 FLASH_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 1e-3)}
 # q is drawn with this std and k, v with 1, so the scaled scores have std 3
 # whatever D is: each row's softmax puts most of its weight on a few keys
@@ -211,9 +224,18 @@ def main() -> int:
     cuda_lib.library()
     print(f"built {cuda_lib.SOURCES} in {info['seconds']:.1f} s "
           f"(0.0 = reused)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    report = _ptxas_report(info["log"])
+    for line in report:
+        print("  " + line)
+    # the tensor-core flash kernel at the models' head dims 80 and 128
+    # keeps everything in registers
+    for d in (80, 128):
+        line = next((ln for ln in report
+                     if ln.startswith(f"flash_tc_kernel<{d},")), None)
+        require(line is not None or not info["log"],
+                f"no ptxas report for flash_tc_kernel<{d}>")
+        require(line is None or line.endswith(" 0 bytes spilled"),
+                f"the D {d} tensor-core kernel spills: {line}")
 
     phase("3. kernels against their plain versions")
     check_kernels(torch)
@@ -228,13 +250,20 @@ def main() -> int:
               f"default blocks {r['ms_default_blocks']:.4f} ms)  bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-              f"launches {r['launches']}  max_abs_err {r['max_abs_err']:.3g}")
+              f"launches {r['launches']}  max_abs_err {r['max_abs_err']:.3g}"
+              f"; replayed from a CUDA graph: {r['ms_graph']:.4f} ms, library "
+              f"{r['library_ms_graph']:.4f} ms; host time a call "
+              f"{r['host_ms']:.4f} ms, library {r['library_host_ms']:.4f} ms")
+    gemv_row = next(r for r in rows if r["name"] == "gemv")
+    print(f"  gemv    bfloat16 replayed from a CUDA graph: "
+          f"{gemv_row['bf16_ms_graph']:.4f} ms, torch.mv "
+          f"{gemv_row['bf16_library_ms_graph']:.4f} ms")
 
     phase("6. flash attention against its plain version")
     check_flash(torch)
 
     bf16_peak = BF16_PEAK["pcie" if "PCIe" in name else "sxm"]
-    fwd_launches = {}
+    fwd_launches, attn_launches = {}, {}
     for first, arch in zip((7, 11, 13), ARCHS):
         if arch == "rwkv6-3b":
             phase("10. rwkv6 and mamba2 against their plain versions")
@@ -246,15 +275,27 @@ def main() -> int:
                              if v})
         phase(f"{first + 1}. serving: the dense ServeEngine on {arch}")
         run_serving(torch, model)
+        attn_launches[arch] = model["launches"]["flash_attention"]
         if arch == "qwen3-8b":
-            phase("9. flash attention timed at the forward's shape")
-            row = time_flash(torch, model["launches"]["flash_attention"],
-                             rates, bf16_peak)
-            print(f"  flash_attention {row['ms']:.4f} ms  bound "
-                  f"{row['bound_ms']:.4f} ms by {row['bound_by']}  plain "
-                  f"{row['plain_ms']:.4f} ms  SDPA {row['library_ms']:.4f} ms"
-                  f"  launches {row['launches']}  max_abs_err "
-                  f"{row['max_abs_err']:.3g}")
+            phase("9. flash attention timed at the forwards' shapes")
+            flash_rows = {}
+            for name_, shape in FLASH_SHAPES.items():
+                row = time_flash(torch, shape, attn_launches.get(name_),
+                                 rates, bf16_peak)
+                print(f"  flash_attention at {name_}'s shape {row['shape']}:"
+                      f" {row['ms']:.4f} ms (tensor-core route; SIMT route "
+                      f"{row['simt_ms']:.4f} ms)  bound {row['bound_ms']:.4f}"
+                      f" ms by {row['bound_by']}  plain {row['plain_ms']:.4f}"
+                      f" ms  SDPA {row['library_ms']:.4f} ms  max_abs_err "
+                      f"{row['max_abs_err']:.3g}")
+                flash_rows[name_] = row
+            # one row for the kernel: qwen3-8b's shape, zamba2-2.7b's
+            # within it (its launches filled in by phase 13)
+            row = flash_rows["qwen3-8b"]
+            row["zamba2_shape"] = {
+                k_: flash_rows["zamba2-2.7b"][k_] for k_ in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "simt_ms", "shape")}
             rows.append(row)
         del model
         torch.cuda.empty_cache()
@@ -267,11 +308,49 @@ def main() -> int:
               f"launches {row['launches']}  max_abs_err "
               f"{row['max_abs_err']:.3g}")
         rows.append(row)
+    flash_row = next(r_ for r_ in rows if r_["name"] == "flash_attention")
+    flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
     require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` log: its
+    name with its template arguments (``flash_tc_kernel<128, 0>``, float
+    as f32 and bfloat16 as bf16), registers and spilled bytes."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            # the name is <length><identifier> in the mangling: take the
+            # identifier ending in "kernel" whose length prefix fits it
+            base = next((ident for i in range(len(mangled))
+                         for d in [re.match(r"\d+", mangled[i:])] if d
+                         for ident in [mangled[i + d.end():
+                                               i + d.end() + int(d.group())]]
+                         if ident.endswith("kernel")
+                         and re.fullmatch(r"[A-Za-z_]\w*", ident)), mangled)
+            args = re.findall(
+                r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|(?<=I)(f)(?=[EL])",
+                mangled)
+            args = [a or b or ("bf16" if c else "f32" if d else "")
+                    for a, b, c, d in args]
+            name = base + (
+                f"<{', '.join(args)}>" if args else "")
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and name:
+            stores = spill.group(1)
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append(f"{name}: {regs.group(1)} registers, {stores} bytes "
+                       f"spilled")
+            name = None
+    return out
 
 
 def _rand(torch, gen, *shape, dtype):
@@ -301,9 +380,11 @@ def check_kernels(torch) -> None:
                  ((96, 72, 80), dict(bm=2048, bn=2048, bk=2048)),
                  ((1000, 300, 777), dict(bm=96, bn=17, bk=512))],
         "gemv": [((4096, 4096), dict(bm=512, bk=512)),
+                 ((4096, 4096), dict(bm=4096, bk=4096)),   # once one CTA
                  ((33, 257), dict(bm=17, bk=96)),
-                 ((100, 9000), dict(bm=2048, bk=4096)),
-                 ((4096, 4096), dict(bm=96, bk=17))],
+                 ((100, 9000), dict(bm=2048, bk=4096)),    # split K
+                 ((4096, 4096), dict(bm=96, bk=17)),
+                 ((1000, 4099), dict(bm=512, bk=512))],    # rows unaligned
         "dot": [((1 << 24,), dict(bk=2048)),
                 ((1000,), dict(bk=17)),
                 ((5000,), dict(bk=100000)),
@@ -329,6 +410,8 @@ def check_kernels(torch) -> None:
                     a, x = (_rand(torch, gen, m, k, dtype=dtype),
                             _rand(torch, gen, k, dtype=dtype))
                     got, want = gemv(a, x, **blk), ref.gemv_ref(a, x)
+                    require(torch.equal(got, gemv(a, x, **blk)),
+                            "gemv gave different bits on a second run")
                 elif op == "dot":
                     a, b = (_rand(torch, gen, *shape, dtype=dtype),
                             _rand(torch, gen, *shape, dtype=dtype))
@@ -420,6 +503,37 @@ def _time_ms(torch, fn, budget_ms: float = 100.0) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_graph_ms(torch, fn, calls: int = 20) -> float:
+    """Device time a call: ``calls`` calls captured in one CUDA graph and
+    replayed, so the host's cost of each launch (the Python wrapper,
+    ctypes) drops out.  A call that takes less device time than its host
+    launch reads as the host time under ``_time_ms``; here it reads as its
+    own."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                       # warm-up on the side stream before capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(torch, graph.replay) / calls
+
+
+def _host_ms(torch, fn, calls: int = 50) -> float:
+    """Host time a call: ``calls`` calls enqueued without waiting for the
+    device (the wrapper's checks, allocation and launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
 def time_kernels(torch, db, launches, rates) -> list[dict]:
     import torch.nn.functional as F
 
@@ -464,15 +578,40 @@ def time_kernels(torch, db, launches, rates) -> list[dict]:
             "library_ms": _time_ms(torch, lambda: lib(*ins)),
             "blocks": blocks, "dtype": "float32",
             "ms_default_blocks": _time_ms(torch, lambda: kern(*ins, **default)),
+            "ms_graph": _time_graph_ms(torch, lambda: kern(*ins, **blocks)),
+            "library_ms_graph": _time_graph_ms(torch, lambda: lib(*ins)),
+            "host_ms": _host_ms(torch, lambda: kern(*ins, **blocks)),
+            "library_host_ms": _host_ms(torch, lambda: lib(*ins)),
         })
+    # gemv in bfloat16 (half the bytes), replayed from a graph
+    gb, gxb = ga.bfloat16(), gx.bfloat16()
+    _close(torch, gemv(gb, gxb), ref.gemv_ref(gb, gxb), *TOL["gemv"]["bfloat16"])
+    gemv_row = next(r_ for r_ in rows if r_["name"] == "gemv")
+    gemv_row["bf16_ms_graph"] = _time_graph_ms(torch, lambda: gemv(gb, gxb))
+    gemv_row["bf16_library_ms_graph"] = _time_graph_ms(
+        torch, lambda: torch.mv(gb, gxb))
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
     return rows
 
 
 # -- the model slices: transformer, rwkv6, zamba2 -----------------------------
 
+def _flash_route(torch, fn):
+    """-> (fn's result, the one route its flash_attention launch took)."""
+    from repro_torch.kernels import flash_attention
+    before = dict(flash_attention.route_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    took = [r for r, n in flash_attention.route_launches.items()
+            if n != before[r]]
+    require(len(took) == 1 and flash_attention.route_launches[took[0]]
+            == before[took[0]] + 1, f"one call launched {took}")
+    return out, took[0]
+
+
 def check_flash(torch) -> None:
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import route
     from repro_torch.kernels.xla_attention import attention as plain
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -485,7 +624,9 @@ def check_flash(torch) -> None:
         (2, 40, 56, 4, 2, 32, dict(causal=False)),
         (2, 40, 56, 4, 2, 32, dict(softcap=30.0, window=16)),
         (1, 300, 300, 16, 16, 80, dict(causal=False)),           # hubert
+        (1, 1000, 1000, 16, 4, 80, {}),                           # zamba2
         (2, 200, 333, 8, 4, 256, dict(softcap=50.0, window=64)),  # gemma2
+        (1, 600, 600, 8, 2, 256, {}),
         (3, 1, 777, 32, 8, 128, {}),                              # one query
         (1, 130, 1000, 8, 1, 128, dict(window=100)),
         (1, 70, 30, 4, 2, 64, {}),            # Sq > Skv: rows with no key
@@ -498,26 +639,43 @@ def check_flash(torch) -> None:
                  * FLASH_Q_STD).to(dtype)
             k = _rand(torch, gen, b, skv, hkv, d, dtype=dtype)
             v = _rand(torch, gen, b, skv, hkv, d, dtype=dtype)
-            got = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
+            got, took = _flash_route(
+                torch, lambda: flash_attention(q, k, v, **kw))
+            want_route = "tc" if dtype == torch.bfloat16 else "simt"
+            require(took == want_route == route(q, k, v),
+                    f"a {dt} call of D {d} took the {took} route")
             require(got.dtype == dtype, f"flash dtype {got.dtype}")
             err = _close(torch, got, plain(q, k, v, **kw), rtol, atol)
             if kw.get("causal", True) and sq > skv:
                 require(bool((got[:, :sq - skv] == 0).all()),
                         "a row with no visible key is not zero")
-            print(f"  flash {dt:8s} B{b} Sq{sq} Skv{skv} H{h}/{hkv} D{d} "
-                  f"{kw}: max abs err {err:.3g} (rtol {rtol}, atol {atol}) "
-                  f"ok")
+            print(f"  flash {dt:8s} {took:4s} B{b} Sq{sq} Skv{skv} H{h}/{hkv} "
+                  f"D{d} {kw}: max abs err {err:.3g} (rtol {rtol}, atol "
+                  f"{atol}) ok")
         # q, k and v as strided views of one packed projection: read in
         # place through their strides
         packed = _rand(torch, gen, 2, 96, 8 + 2 * 2, 64, dtype=dtype)
         packed[:, :, :8] *= FLASH_Q_STD
         q, k, v = packed[:, :, :8], packed[:, :, 8:10], packed[:, :, 10:]
         require(not q.is_contiguous(), "the view case lost its strides")
-        err = _close(torch, flash_attention(q, k, v, window=24),
-                     plain(q, k, v, window=24), rtol, atol)
-        print(f"  flash {dt:8s} strided views of a packed qkv: max abs err "
-              f"{err:.3g} ok")
+        got, took = _flash_route(
+            torch, lambda: flash_attention(q, k, v, window=24))
+        require(took == ("tc" if dtype == torch.bfloat16 else "simt"),
+                f"strided {dt} views took the {took} route")
+        err = _close(torch, got, plain(q, k, v, window=24), rtol, atol)
+        print(f"  flash {dt:8s} {took:4s} strided views of a packed qkv: max "
+              f"abs err {err:.3g} ok")
+        # a head stride of 68 elements: rows not 16-byte aligned, so the
+        # SIMT route, on the same semantics
+        packed = _rand(torch, gen, 2, 96, 8 + 2 * 2, 68, dtype=dtype)
+        packed[:, :, :8] *= FLASH_Q_STD
+        q, k, v = (packed[:, :, :8, :64], packed[:, :, 8:10, :64],
+                   packed[:, :, 10:, :64])
+        got, took = _flash_route(torch, lambda: flash_attention(q, k, v))
+        require(took == "simt", f"a misaligned view took the {took} route")
+        err = _close(torch, got, plain(q, k, v), rtol, atol)
+        print(f"  flash {dt:8s} {took:4s} views with a head stride of 68: max "
+              f"abs err {err:.3g} ok")
 
 
 def _compare_logits(torch, got, want) -> dict:
@@ -556,10 +714,12 @@ def _launches(cfg, run: str) -> dict:
 
 
 def _read_launches(reset: bool = False) -> dict:
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, flash_attention
     if reset:
         for k in KERNELS:
             k.launches = 0
+        flash_attention.route_launches = dict.fromkeys(
+            flash_attention.route_launches, 0)
     return {k.__name__: k.launches for k in KERNELS}
 
 
@@ -603,7 +763,7 @@ class _CheckedOps:
 
 def run_forward(torch, arch: str) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import plain
+    from repro_torch.kernels import flash_attention, plain
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import family_module
     from repro_torch.models.tree import leaves, tree_map
@@ -630,11 +790,15 @@ def run_forward(torch, arch: str) -> dict:
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
         launches = _read_launches()
+        routes = dict(flash_attention.route_launches)
         require(logits.shape == (1, FWD_TOKENS, cfg.vocab),
                 f"logits shape {tuple(logits.shape)}")
         require(launches == _launches(cfg, "forward"),
                 f"one forward launched {launches}, not "
                 f"{_launches(cfg, 'forward')}")
+        require(routes["tc"] == launches["flash_attention"]
+                and routes["simt"] == 0,
+                f"the bfloat16 forward's attention took the routes {routes}")
         # the same forward on the plain versions on the card, for
         # comparison only
         plain_step = make_prefill_step(cfg, impl=plain)
@@ -651,7 +815,8 @@ def run_forward(torch, arch: str) -> dict:
                 params, {"tokens": tokens})
     lim = LIMITS[arch]
     print(f"forward 1x{FWD_TOKENS}: {t_kernel:.3f} s with the kernels, "
-          f"{t_plain:.3f} s with the plain versions; launches {launches}")
+          f"{t_plain:.3f} s with the plain versions; launches {launches}, "
+          f"flash_attention routes {routes}")
     for what, got, want, limit in (
             ("kernel forward vs the plain forward", logits, plain_logits,
              lim["forward"]),
@@ -790,23 +955,37 @@ def run_serving(torch, model) -> None:
                     "prefilling in two halves drifts from prefilling whole")
 
 
-def time_flash(torch, launches, rates, bf16_peak) -> dict:
+# the forwards' attention shapes (B, S, H, Hkv, D), causal, bfloat16
+FLASH_SHAPES = {"qwen3-8b": (1, FWD_TOKENS, 32, 8, 128),
+                "zamba2-2.7b": (1, FWD_TOKENS, 32, 32, 80)}
+
+
+def time_flash(torch, shape, launches, rates, bf16_peak) -> dict:
+    """The kernel at one forward's shape beside its bound, its plain
+    version, SDPA and its own SIMT route on the same values (q read
+    through a view whose head stride, D + 4, the route rule refuses)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import route
     from repro_torch.kernels.xla_attention import attention as plain
 
     bw, _ = rates
-    b, s, h, hkv, d = 1, FWD_TOKENS, 32, 8, 128
+    b, s, h, hkv, d = shape
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf = torch.bfloat16
     q = (_rand(torch, gen, b, s, h, d, dtype=torch.float32)
          * FLASH_Q_STD).to(bf)
     k = _rand(torch, gen, b, s, hkv, d, dtype=bf)
     v = _rand(torch, gen, b, s, hkv, d, dtype=bf)
+    q_simt = torch.empty((b, s, h, d + 4), dtype=bf, device="cuda")[..., :d]
+    q_simt.copy_(q)
+    require(route(q, k, v) == "tc" and route(q_simt, k, v) == "simt",
+            "the timed inputs do not take the routes they are meant to")
     want = plain(q, k, v)
     err = _close(torch, flash_attention(q, k, v), want,
                  *FLASH_TOL["bfloat16"])
+    _close(torch, flash_attention(q_simt, k, v), want, *FLASH_TOL["bfloat16"])
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True)
@@ -826,10 +1005,11 @@ def time_flash(torch, launches, rates, bf16_peak) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": _time_ms(torch, lib), "dtype": "bfloat16",
+        "kernel_route": "tc",
+        "simt_ms": _time_ms(torch, lambda: flash_attention(q_simt, k, v)),
         "shape": {"B": b, "Sq": s, "Skv": s, "H": h, "Hkv": hkv, "D": d,
                   "causal": True},
     }
-
 
 
 # -- the recurrences: rwkv6 and mamba2 ---------------------------------------

@@ -1,8 +1,10 @@
 // Shared helpers for the hand-written Hopper kernels of repro_torch.
 //
-// Every kernel takes float32 or bfloat16 operands, converts them to float32
-// on load and accumulates in float32 FMA (no TF32, no tensor cores): the
-// contract of the reference's `preferred_element_type=jnp.float32`.
+// Every kernel takes float32 or bfloat16 operands and accumulates in
+// float32 (no TF32): the contract of the reference's
+// `preferred_element_type=jnp.float32`.  All but one convert to float32 on
+// load and run float32 FMA; flash attention's bfloat16 route multiplies
+// bfloat16 on the tensor cores, whose products are exact in float32.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,19 +13,44 @@
 //
 // Bound on the H100: operations.  Causal attention over S keys does
 // 2 S^2 H D multiply-adds against 2 S H D reads per head group, far above the
-// card's ~20 float32 operations per byte.  This first kernel runs float32
-// FMA on the SIMT cores (no tensor cores, no TF32: float32 inputs keep
-// their full precision, and bfloat16 inputs are widened exactly), so it
-// sits well above the bfloat16 tensor-core bound; wgmma and TMA are later
-// work.  What the design does: one CTA per (64 queries, head, batch) keeps
-// its Q tile resident in shared memory and walks 64-key tiles, skipping the
-// tiles that the causal mask or the window hide from every query of the
-// CTA; each thread owns a 4x4 block of scores and a 4-row slice of the
-// output accumulator in registers, so the scores never reach device memory.
+// card's ~300 bfloat16 tensor-core operations per byte.  Two kernels, one
+// chosen per call by a written rule (`kernels/flash_attention.py::route`):
+//
+// "tc", the tensor-core kernel (bfloat16, D % 16 == 0, D <= 256, 16-byte
+// aligned rows): the FlashAttention-2 structure on mma.sync m16n8k16 with
+// bfloat16 inputs and float32 accumulation.  One CTA of 4 warps per (64
+// queries, head, batch), each warp owning 16 query rows; Q is staged once
+// and held as A fragments in registers up to D = 112 (re-read from shared
+// memory each tile from D = 128 up, where holding it spills); K and V stream
+// through a 2-stage cp.async ring of 64-key tiles (tile j+1 loads while
+// tile j computes), rows padded by 16 bytes so ldmatrix (K) and
+// ldmatrix.trans (V) hit distinct banks.  S = Q K^T lands in accumulator fragments; scale,
+// soft-cap, mask and the online softmax run there, each row's max and sum
+// reduced over the 4 lanes of a quad in a fixed order; P goes straight from
+// registers into A fragments of the P V product.  Rounding: products of
+// bfloat16 values are exact in float32, so S differs from the float32
+// route only in summation order; P is split into two bfloat16 terms, P_hi =
+// bf16(P) and P_lo = bf16(P - P_hi), and P V runs once for each, so P keeps
+// ~16 bits (one term alone, ~8 bits, moves near-cancelling outputs past
+// the bfloat16 limit); the row sum l adds the same P_hi + P_lo the product
+// used.  The output is rounded to bfloat16 once.
+//
+// "simt", every other call (float32 above all: no TF32): float32 FMA on the
+// SIMT cores, bfloat16 widened exactly on load.  One CTA per (64 queries,
+// head, batch) keeps its Q tile resident in shared memory and walks 64-key
+// tiles; each thread owns a 4x4 block of scores and a 4-row slice of the
+// output accumulator in registers.
+//
+// Both skip the key tiles that the causal mask or the window hide from
+// every query of the CTA, so the scores never reach device memory and
+// hidden tiles cost nothing.  The tensor-core kernel's grid runs the query
+// blocks last-first, so the longest causal rows start first.
 //
 // Layout: q (B, Sq, H, D), k and v (B, Skv, Hkv, D), out (B, Sq, H, D),
 // each addressed through its own batch, sequence and head strides (the
 // head dim must be contiguous), so no transposed copy is made.
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
@@ -216,6 +241,294 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq
                        softcap, scale, s);
 }
 
+
+// ---- the tensor-core route: bfloat16 on mma.sync m16n8k16 ------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int THREADS = 128;  // 4 warps, 16 query rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled (nothing read) where !pred
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bfloat16 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// rows [row0, row0 + ROWS) of one head (base: its first row) into smem with
+// row stride D + 8, zero-filling rows at or past n_rows
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long stride,
+                                          int row0, int n_rows) {
+  constexpr int CH = D / 8, N = ROWS * CH;  // 16-byte chunks: a row's, the tile's
+#pragma unroll
+  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    if (N % THREADS != 0 && c >= N) break;
+    const int r = c / CH, col = (c % CH) * 8, row = row0 + r;
+    const bool ok = row < n_rows;
+    cp_async16(dst + r * (D + 8) + col, ok ? base + row * stride + col : base, ok);
+  }
+}
+
+// Fragment layouts of m16n8k16 (lane = 4g + t): A regs hold (row g | g+8,
+// cols 2t,2t+1 | 2t+8,2t+9), B regs (k 2t,2t+1 | 2t+8,2t+9; col g), the
+// accumulator (row g | g+8; cols 2t, 2t+1).  Each warp's score tile is
+// 16 rows x 64 keys: 8 accumulators s[n] (keys 8n..8n+7); its output
+// 16 x D: D/8 accumulators o[n] (cols 8n..8n+7).
+template <int D, bool Q_REGS>
+__global__ void __launch_bounds__(THREADS)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Skv, int H,
+                int Hkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                int window, float softcap, float scale) {
+  constexpr int LD = D + 8, KSTEPS = D / 16, NT_O = D / 8, NT_S = BKV / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
+  bf16* Ks = Qs + BQ * LD;                       // 2 stages of BKV x LD
+  bf16* Vs = Ks + 2 * BKV * LD;                  // 2 stages of BKV x LD
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_offset = Skv - Sq;
+
+  // key range that any query of this tile can see
+  const int qmin = q0 + q_offset;
+  const int qmax = min(q0 + BQ, Sq) - 1 + q_offset;
+  const int kv_hi = causal ? min(Skv, qmax + 1) : Skv;
+  const int kv_lo = window > 0 ? max(0, qmin - window + 1) : 0;
+  const int first = (kv_lo / BKV) * BKV;
+  const int n_tiles = kv_hi > first ? (kv_hi - first + BKV - 1) / BKV : 0;
+
+  const bf16* kbase = k + (long long)b * ks.b + (long long)hk * ks.h;
+  const bf16* vbase = v + (long long)b * vs.b + (long long)hk * vs.h;
+  load_tile<D, BQ>(Qs, q + (long long)b * qs.b + (long long)h * qs.h, qs.s, q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile<D, BKV>(Ks, kbase, ks.s, first, Skv);
+    load_tile<D, BKV>(Vs, vbase, vs.s, first, Skv);
+  }
+  cp_async_commit();
+
+  // this lane's ldmatrix rows: Q (A operand), K (B of Q K^T), V (B of P V,
+  // transposed on load)
+  const bf16* q_lane = Qs + (warp * 16 + (lane & 15)) * LD + ((lane >> 4) << 3);
+  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
+  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+
+  unsigned qf[Q_REGS ? KSTEPS : 1][4];
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) ldsm_x4(qf[kk], q_lane + kk * 16);
+  }
+
+  float o[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = first + j * BKV, st = j & 1;
+    if (j + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_tile<D, BKV>(Ks + (st ^ 1) * BKV * LD, kbase, ks.s, k0 + BKV, Skv);
+      load_tile<D, BKV>(Vs + (st ^ 1) * BKV * LD, vbase, vs.s, k0 + BKV, Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * BKV * LD;
+    const bf16* Vt = Vs + st * BKV * LD;
+
+    // S = Q K^T
+    float s[NT_S][4];
+#pragma unroll
+    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      unsigned a[4];
+      if constexpr (Q_REGS) {
+        a[0] = qf[kk][0], a[1] = qf[kk][1], a[2] = qf[kk][2], a[3] = qf[kk][3];
+      } else {
+        ldsm_x4(a, q_lane + kk * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < NT_S / 2; ++np) {
+        unsigned bk[4];
+        ldsm_x4(bk, Kt + np * 16 * LD + k_off + kk * 16);
+        mma(s[2 * np], a, bk[0], bk[1]);
+        mma(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale, soft-cap, mask (only where the tile crosses an edge); scores
+    // in log2 units from here on
+    const bool edge = (causal && k0 + BKV - 1 > qmin) ||
+                      (window > 0 && k0 <= qmax - window) || k0 + BKV > Skv;
+    float rmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        x *= LOG2E;
+        if (edge) {
+          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+          const int qpos = q0 + warp * 16 + g + (e >> 1) * 8 + q_offset;
+          bool ok = kpos < Skv;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          x = ok ? x : NEG_INF;
+        }
+        s[n][e] = x;
+        rmax[e >> 1] = fmaxf(rmax[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+      const float m_new = fmaxf(m_run[r], rmax[r]);
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      o[n][0] *= alpha[0], o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1], o[n][3] *= alpha[1];
+    }
+
+    // O += P V, 16 keys at a time: P = P_hi + P_lo, both bfloat16 A
+    // fragments built in registers from score accumulators 2kk and 2kk+1
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      unsigned ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // A reg i: accumulator 2kk + i/2, row half i%2
+        const float* sv = &s[2 * kk + (i >> 1)][(i & 1) * 2];
+        const float m = m_run[i & 1];
+        // a masked score adds nothing, even while the row has seen no key
+        const float p0 = sv[0] > 0.5f * NEG_INF ? exp2f(sv[0] - m) : 0.f;
+        const float p1 = sv[1] > 0.5f * NEG_INF ? exp2f(sv[1] - m) : 0.f;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+        const float2 lf = __bfloat1622float2(lo);
+        l_run[i & 1] += (hf.x + lf.x) + (hf.y + lf.y);
+        ph[i] = as_u32(hi);
+        pl[i] = as_u32(lo);
+      }
+#pragma unroll
+      for (int dp = 0; dp < NT_O / 2; ++dp) {
+        unsigned bv[4];
+        ldsm_x4_t(bv, Vt + kk * 16 * LD + v_off + dp * 16);
+        mma(o[2 * dp], ph, bv[0], bv[1]);
+        mma(o[2 * dp], pl, bv[0], bv[1]);
+        mma(o[2 * dp + 1], ph, bv[2], bv[3]);
+        mma(o[2 * dp + 1], pl, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it refills
+  }
+  cp_async_wait<0>();
+
+  bf16* obase = out + (long long)b * os.b + (long long)h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= Sq) continue;
+    bf16* orow = obase + (long long)row * os.s + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+           int H, int Hkv, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+           int window, float softcap, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BKV) * (D + 8);
+  auto kern = flash_tc_kernel<D, (D <= 112)>;  // Q in registers up to D 112
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)hasco::cdiv(Sq, BQ), (unsigned)H, (unsigned)B);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), Sq, Skv, H, Hkv, qs, ks, vs, os, causal, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int... Ds>
+int dispatch(std::integer_sequence<int, Ds...>, int D, const void* q, const void* k,
+             const void* v, void* o, int B, int Sq, int Skv, int H, int Hkv, Strides qs,
+             Strides ks, Strides vs, Strides os, int causal, int window, float softcap,
+             float scale, cudaStream_t s) {
+  int rc = (int)cudaErrorInvalidValue;
+  // one instance per head dim 16, 32, ..., 256
+  ((D == 16 * (Ds + 1)
+        ? (rc = launch<16 * (Ds + 1)>(q, k, v, o, B, Sq, Skv, H, Hkv, qs, ks, vs, os,
+                                      causal, window, softcap, scale, s),
+           0)
+        : 0),
+   ...);
+  return rc;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // strides: {batch, sequence, head} in elements for q, k, v and out, in that
@@ -238,4 +551,22 @@ extern "C" int hasco_flash_attention(const void* q, const void* k, const void* v
     return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, D, qs, ks, vs, os, causal,
                                    window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bfloat16 q, k, v, out; D % 16 == 0, D <= 256; every
+// row 16-byte aligned (the wrapper's route rule).  Arguments as above.
+extern "C" int hasco_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
+                                        int B, int Sq, int Skv, int H, int Hkv, int D,
+                                        const long long* strides, int causal, int window,
+                                        float softcap, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || H % Hkv != 0 || D % 16 != 0 || D < 16 ||
+      D > 256)
+    return (int)cudaErrorInvalidValue;
+  const Strides qs{strides[0], strides[1], strides[2]};
+  const Strides ks{strides[3], strides[4], strides[5]};
+  const Strides vs{strides[6], strides[7], strides[8]};
+  const Strides os{strides[9], strides[10], strides[11]};
+  return tc::dispatch(std::make_integer_sequence<int, 16>{}, D, q, k, v, o, B, Sq, Skv, H,
+                      Hkv, qs, ks, vs, os, causal, window, softcap, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,11 @@ WKV6 and SSD recurrences, each with a plain PyTorch version and dispatch in
 
   gemm / gemv / dotprod / conv2d — wrappers over ``csrc/*.cu``, built at
                                    first use by ``cuda_lib``
-  flash_attention                — ``csrc/flash_attention.cu``; its plain
-                                   version is ``xla_attention.attention``
+  flash_attention                — ``csrc/flash_attention.cu`` (a bf16
+                                   tensor-core and a float32 SIMT kernel,
+                                   picked by ``flash_attention.py::route``);
+                                   its plain version is
+                                   ``xla_attention.attention``
   rwkv6 / mamba2                 — ``csrc/rwkv6.cu``, ``csrc/mamba2.cu``;
                                    their plain versions are in
                                    ``xla_linear``

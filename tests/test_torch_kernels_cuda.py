@@ -9,11 +9,16 @@ on the card's machine, which has no JAX:
 
 Tolerances are those of ``tests/test_kernels.py``: float32 rtol 1e-5 (conv
 1e-4), bfloat16 rtol 5e-2, with atol ten times rtol (conv 2e-3).  Flash
-attention: float32 rtol/atol 1e-3 (``tests/test_kernels.py:78``); bfloat16
-rtol 1e-2, one bfloat16 ulp of the output (kernel and plain version are both
-float32 inside and round once), with atol 1e-3 for outputs near 0.  Its q is
-drawn with std 3, so the scores have std 3 and each row's output, led by a
-few keys, is O(1): a dropped or misweighted key tile shows far above atol.
+attention: float32 rtol/atol 1e-3 (``tests/test_kernels.py:78``), on the
+SIMT route (float32 FMA); bfloat16 rtol 1e-2, one bfloat16 ulp of the
+output, with atol 1e-3 for outputs near 0.  bfloat16 takes the tensor-core
+route: its bfloat16 products are exact in float32 and P is rounded to two
+bfloat16 terms (P_hi + P_lo, ~16 bits), so it is as close to float32 as the
+plain version, and both round the output once (P in one term would move
+near-cancelling outputs past atol: ``tests/test_torch_flash_route.py``).
+Its q is drawn with std 3, so the scores have std 3 and each row's output,
+led by a few keys, is O(1): a dropped or misweighted key tile shows far
+above atol.
 RWKV-6 and Mamba-2 against their plain chunked versions: float32 rtol/atol
 1e-4 (the same float32 math summed in other orders and chunks), bfloat16
 outputs rtol 1e-2 / atol 1e-3 (one bfloat16 ulp: both round a float32
@@ -28,6 +33,7 @@ import torch
 from repro_torch.kernels import (conv2d, dot, flash_attention, gemm, gemv,
                                  mamba2, ops, ref, rwkv6, xla_attention,
                                  xla_linear)
+from repro_torch.kernels.flash_attention import route
 
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -78,6 +84,31 @@ def test_gemv_kernel_matches_plain(cuda, dtype, blocks):
     a = _on(cuda, 133, 257, dtype=DTYPES[dtype])
     x = _on(cuda, 257, dtype=DTYPES[dtype])
     _close(gemv(a, x, bm=bm, bk=bk), ref.gemv_ref(a, x), *_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,blocks,offset", [
+    ((4096, 4096), (4096, 4096), 0),    # the block that once gave one CTA
+    ((512, 1000), (10 ** 6, 10 ** 6), 0),
+    ((300, 1003), (64, 64), 0),         # K ragged: rows not 16-byte aligned
+    ((300, 1024), (64, 64), 3),         # A and x start off 16 bytes
+    ((7, 50000), (7, 50000), 0),        # short and wide: K split over CTAs
+    ((9, 20001), (1, 1), 5),
+])
+def test_gemv_kernel_is_bit_stable_at_any_block(cuda, dtype, shape, blocks,
+                                                offset):
+    m, k = shape
+    buf = _on(cuda, m * k + k + 2 * offset, dtype=DTYPES[dtype])
+    a = buf[offset:offset + m * k].view(m, k)
+    x = buf[m * k + 2 * offset:]
+    before = gemv.launches
+    y1 = gemv(a, x, bm=blocks[0], bk=blocks[1])
+    y2 = gemv(a, x, bm=blocks[0], bk=blocks[1])
+    assert gemv.launches == before + 2
+    assert torch.equal(y1, y2)                  # same bits on every run
+    rtol, atol = _tol(dtype)
+    _close(y1, ref.gemv_ref(a, x), rtol, atol)
 
 
 @pytest.mark.cuda
@@ -154,6 +185,58 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
     if kw.get("causal", True) and "softcap" not in kw and "scale" not in kw:
         _close(ops.attention(q, k, v, implementation="cuda", **kw),
                ref.attention_ref(q, k, v, **kw), *FLASH_TOL[dtype])
+
+
+TC_CASES = [
+    # (B, Sq, Skv, H, Hkv, D, options): every head dim of the models and
+    # the tests, GQA, soft-cap, window, non-causal, Sq < Skv, Sq > Skv,
+    # one query
+    (2, 40, 56, 4, 2, 32, {}),
+    (2, 40, 56, 4, 2, 32, dict(softcap=20.0, window=16)),
+    (1, 200, 200, 8, 2, 64, dict(causal=False)),
+    (1, 70, 30, 4, 2, 64, {}),
+    (1, 333, 333, 8, 8, 80, {}),
+    (1, 129, 300, 16, 4, 80, dict(window=50)),
+    (3, 1, 777, 32, 8, 128, {}),
+    (1, 130, 1000, 8, 1, 128, dict(window=100)),
+    (1, 256, 256, 4, 2, 128, dict(softcap=30.0, causal=False)),
+    (1, 100, 170, 4, 2, 256, dict(softcap=50.0, window=33)),
+    (1, 300, 300, 4, 2, 256, {}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_attention_tensor_core_route_matches_plain(cuda, case):
+    b, sq, skv, h, hkv, d, kw = case
+    q = (_on(cuda, b, sq, h, d) * Q_STD).to(torch.bfloat16)
+    k = _on(cuda, b, skv, hkv, d, dtype=torch.bfloat16)
+    v = _on(cuda, b, skv, hkv, d, dtype=torch.bfloat16)
+    assert route(q, k, v) == "tc"
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["tc"] == before["tc"] + 1
+    _close(got, xla_attention.attention(q, k, v, **kw), *FLASH_TOL["bfloat16"])
+    if kw.get("causal", True) and sq > skv:
+        assert torch.equal(got[:, :sq - skv],
+                           torch.zeros_like(got[:, :sq - skv]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_stride,want", [(64, "tc"), (68, "simt")])
+def test_flash_attention_bf16_views_take_their_route(cuda, head_stride, want):
+    packed = _on(cuda, 2, 96, 12, head_stride, dtype=torch.bfloat16)
+    packed[:, :, :8] *= Q_STD
+    q, k, v = (packed[:, :, :8, :64], packed[:, :, 8:10, :64],
+               packed[:, :, 10:, :64])
+    assert not q.is_contiguous() and not k.is_contiguous()
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, window=24)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches[want] == before[want] + 1
+    _close(got, xla_attention.attention(q, k, v, window=24),
+           *FLASH_TOL["bfloat16"])
 
 
 @pytest.mark.cuda
