@@ -12,18 +12,25 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed);
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and at ragged shapes with odd blocks, float32 and
-     bfloat16, with the tolerances of ``tests/test_kernels.py``; ``dot``
-     and ``gemv`` must give the same bits twice (``gemv`` also at the block
-     that once gave one CTA, and at K not a multiple of 8);
+     bfloat16, with the tolerances of ``tests/test_kernels.py``; ``dot``,
+     ``gemv``, ``gemm`` and ``conv2d`` must give the same bits twice
+     (``gemv`` also at the block that once gave one CTA, and at K not a
+     multiple of 8; ``gemm`` and ``conv2d`` at every legal CTA tile, with
+     the reduction split, at unaligned operands and at R != S), each gemm
+     and conv2d case printing its plan (tile, splits, CTAs);
   4. the main path: ``python -m repro_torch.tuner ... --measure --backend
      cuda`` for two applications at the paper's sizes into a fresh tuning
-     DB, with every kernel's launch count read from that run alone; then a
-     tuned ``ops.matmul`` resolves its blocks from the DB;
+     DB, with every kernel's launch count read from that run alone; the
+     distinct measured times of the gemm and conv2d candidates with their
+     plans, and whether gemm_conv's commit moved from the one made while a
+     CTA owned one whole block; then a tuned ``ops.matmul`` resolves its
+     blocks from the DB;
   5. each kernel timed at the main path's shape and committed blocks beside
      its bound, its plain version and the PyTorch library call, called
      back to back from Python and replayed from a CUDA graph (device time
      without the host's launch cost), with the host time a call; gemv also
-     in bfloat16;
+     in bfloat16; gemm and conv2d with their plans, and timed at one block
+     of every legal tile class;
   6. the flash attention kernel against its plain version on the card,
      float32 and bfloat16, at the forward's shape and at ragged ones (Sq <
      Skv and Sq > Skv, head dims 80/128/256, GQA, soft-cap, window, strided
@@ -116,6 +123,17 @@ TOL = {"gemm": {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-1)},
        "gemv": {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-1)},
        "dot": {"float32": (1e-5, 1e-3), "bfloat16": (5e-2, 5e-1)},
        "conv2d": {"float32": (1e-4, 2e-3), "bfloat16": (5e-2, 5e-1)}}
+
+# every CTA tile the gemm and conv2d kernels are compiled for
+# (kernels/gemm.py TILE_SIDES x TILE_SIDES x STAGE_DEPTHS; conv2d's
+# TILE_CHANNELS)
+GEMM_TILES = [(tm, tn, tk) for tm in (32, 64) for tn in (32, 64)
+              for tk in (8, 16, 32)]
+CONV_TILES = (32, 64, 128)
+# the blocks the measured flow committed for gemm_conv while a CTA owned one
+# whole block (its phase 4 on the H100): the commit this run is compared with
+EARLIER_COMMIT = {"gemm": {"bm": 256, "bn": 256, "bk": 128},
+                  "conv2d": {"bk": 64}}
 
 KERNEL_META = {
     "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:50"),
@@ -237,6 +255,13 @@ def main() -> int:
         require(line is None or line.endswith(" 0 bytes spilled"),
                 f"the D {d} tensor-core kernel spills: {line}")
 
+    # the gemm and conv2d tiles: no spills at any tile
+    tiles = [ln for ln in report if ln.startswith(("tile_mm_kernel",
+                                                   "split_sum_kernel"))]
+    require(bool(tiles) or not info["log"], "no ptxas report for the tiles")
+    for line in tiles:
+        require(line.endswith(" 0 bytes spilled"), f"a tile spills: {line}")
+
     phase("3. kernels against their plain versions")
     check_kernels(torch)
 
@@ -254,6 +279,19 @@ def main() -> int:
               f"; replayed from a CUDA graph: {r['ms_graph']:.4f} ms, library "
               f"{r['library_ms_graph']:.4f} ms; host time a call "
               f"{r['host_ms']:.4f} ms, library {r['library_host_ms']:.4f} ms")
+    for r in rows:
+        if "tiles" not in r:
+            continue
+        print(f"  {r['name']} plan at the committed blocks {r['plan']}, at "
+              f"the default blocks {r['plan_default_blocks']}; replayed from a "
+              f"CUDA graph at the default blocks "
+              f"{r['ms_graph_default_blocks']:.4f} ms; max abs err against "
+              f"float64 {r['max_abs_err_f64']:.3g} (plain "
+              f"{r['plain_max_abs_err_f64']:.3g})")
+        for t in r["tiles"]:
+            print(f"    tile {t['tile']} ({t['splits']} splits, {t['ctas']} "
+                  f"CTAs; blocks {t['blocks']}): {t['ms']:.4f} ms, replayed "
+                  f"{t['ms_graph']:.4f} ms")
     gemv_row = next(r for r in rows if r["name"] == "gemv")
     print(f"  gemv    bfloat16 replayed from a CUDA graph: "
           f"{gemv_row['bf16_ms_graph']:.4f} ms, torch.mv "
@@ -342,6 +380,10 @@ def _ptxas_report(log: str) -> list[str]:
                     for a, b, c, d in args]
             name = base + (
                 f"<{', '.join(args)}>" if args else "")
+            # the shared GEMM/CONV2D tile: which kernel's B stager it runs
+            for stager, op in (("DenseB", "gemm"), ("ConvB", "conv2d")):
+                if stager in mangled:
+                    name += f" ({op})"
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
             stores = spill.group(1)
@@ -368,17 +410,48 @@ def _close(torch, got, want, rtol, atol) -> float:
     return err
 
 
+def _plan(op, shape, blk, dtype):
+    """The geometry a gemm or conv2d call of ``shape`` (as phase 3 and 5
+    write it) and blocks ``blk`` runs on this card, else None."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.conv2d import plan as conv_plan
+    from repro_torch.kernels.gemm import plan as gemm_plan
+    n_sm, size = cuda_lib.sm_count(0), dtype.itemsize
+    if op == "gemm":
+        m, n, k = shape[:3]
+        return gemm_plan(m, n, k, size, n_sm, blk["bm"], blk["bn"], blk["bk"])
+    if op == "conv2d":
+        kk, c, h, w, r, s = shape
+        return conv_plan(kk, c, h - r + 1, w - s + 1, r, s, size, n_sm,
+                         blk["bk"])
+    return None
+
+
+def _plan_note(op, shape, blk, dtype) -> str:
+    p = _plan(op, shape, blk, dtype)
+    return "" if p is None else (f" -> tile {p.tile}, {p.splits} splits, "
+                                 f"{p.ctas} CTAs")
+
+
 def check_kernels(torch) -> None:
     from repro_torch.kernels import conv2d, dot, gemm, gemv, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {
         # name: [(shape args, blocks)]; the first is the main path's shape
+        # gemm (M, N, K) or (M, N, K, offset): A and B as views `offset`
+        # elements into one buffer, so neither starts 16-byte aligned
         "gemm": [((1024, 1024, 1024), dict(bm=256, bn=256, bk=512)),
                  ((1024, 1024, 1024), dict(bm=64, bn=64, bk=1024)),
                  ((17, 129, 65), dict(bm=17, bn=96, bk=17)),
                  ((96, 72, 80), dict(bm=2048, bn=2048, bk=2048)),
-                 ((1000, 300, 777), dict(bm=96, bn=17, bk=512))],
+                 ((1000, 300, 777), dict(bm=96, bn=17, bk=512)),
+                 ((64, 64, 20000), dict(bm=64, bn=64, bk=32)),   # split K
+                 ((300, 200, 1024, 3), dict(bm=64, bn=64, bk=32)),
+                 ((130, 257, 65, 1), dict(bm=64, bn=32, bk=16))]
+        # one case for each legal tile, ragged against it, K split
+        + [((200, 130, 1000), dict(bm=tm, bn=tn, bk=tk)) for tm, tn, tk in
+           GEMM_TILES],
         "gemv": [((4096, 4096), dict(bm=512, bk=512)),
                  ((4096, 4096), dict(bm=4096, bk=4096)),   # once one CTA
                  ((33, 257), dict(bm=17, bk=96)),
@@ -389,11 +462,16 @@ def check_kernels(torch) -> None:
                 ((1000,), dict(bk=17)),
                 ((5000,), dict(bk=100000)),
                 ((1 << 24,), dict(bk=96))],
-        "conv2d": [((256, 256, 16, 16, 3), dict(bk=128)),
-                   ((24, 16, 18, 20, 3), dict(bk=17)),
-                   ((8, 4, 9, 9, 1), dict(bk=96)),
-                   ((16, 3, 40, 33, 7), dict(bk=5)),
-                   ((300, 64, 23, 19, 3), dict(bk=512))],
+        # conv2d (K, C, H, W, R, S)
+        "conv2d": [((256, 256, 16, 16, 3, 3), dict(bk=128)),
+                   ((256, 256, 16, 16, 3, 3), dict(bk=64)),
+                   ((24, 16, 18, 20, 3, 3), dict(bk=17)),
+                   ((8, 4, 9, 9, 1, 1), dict(bk=96)),
+                   ((16, 3, 40, 33, 7, 7), dict(bk=5)),
+                   ((300, 64, 23, 19, 3, 3), dict(bk=512)),
+                   ((24, 16, 11, 13, 3, 2), dict(bk=17)),        # R != S
+                   ((40, 17, 9, 20, 1, 4), dict(bk=96))]
+        + [((130, 20, 18, 17, 3, 3), dict(bk=tm)) for tm in CONV_TILES],
     }
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).removeprefix("torch.")
@@ -401,10 +479,13 @@ def check_kernels(torch) -> None:
             rtol, atol = TOL[op][dt]
             for shape, blk in runs:
                 if op == "gemm":
-                    m, n, k = shape
-                    a, b = (_rand(torch, gen, m, k, dtype=dtype),
-                            _rand(torch, gen, k, n, dtype=dtype))
+                    m, n, k, off = (*shape, 0)[:4]
+                    buf = _rand(torch, gen, m * k + k * n + off, dtype=dtype)
+                    a = buf[off:off + m * k].view(m, k)
+                    b = buf[off + m * k:].view(k, n)
                     got, want = gemm(a, b, **blk), ref.gemm_ref(a, b)
+                    require(torch.equal(got, gemm(a, b, **blk)),
+                            "gemm gave different bits on a second run")
                 elif op == "gemv":
                     m, k = shape
                     a, x = (_rand(torch, gen, m, k, dtype=dtype),
@@ -421,15 +502,18 @@ def check_kernels(torch) -> None:
                     require(torch.equal(got, dot(a, b, **blk)),
                             "dot gave different bits on a second run")
                 else:
-                    kk, c, h, w, r = shape
+                    kk, c, h, w, r, s_ = shape
                     a, wt = (_rand(torch, gen, c, h, w, dtype=dtype),
-                             _rand(torch, gen, kk, c, r, r, dtype=dtype))
+                             _rand(torch, gen, kk, c, r, s_, dtype=dtype))
                     got, want = conv2d(a, wt, **blk), ref.conv2d_ref(a, wt)
+                    require(torch.equal(got, conv2d(a, wt, **blk)),
+                            "conv2d gave different bits on a second run")
                 torch.cuda.synchronize()
                 require(got.dtype == want.dtype, f"{op} dtype {got.dtype}")
                 err = _close(torch, got, want, rtol, atol)
-                print(f"  {op:7s} {dt:8s} {str(shape):22s} {blk}: max abs "
-                      f"err {err:.3g} (rtol {rtol}, atol {atol}) ok")
+                print(f"  {op:7s} {dt:8s} {str(shape):22s} {blk}"
+                      f"{_plan_note(op, shape, blk, dtype)}: max abs err "
+                      f"{err:.3g} (rtol {rtol}, atol {atol}) ok")
 
 
 def run_main_path(torch):
@@ -437,16 +521,30 @@ def run_main_path(torch):
     from repro_torch.tuner.__main__ import main as tuner_main
     from repro_torch.tuner.db import TuningDB
 
+    from repro_torch.tuner import measure
+
     if DB_PATH.parent.exists():
         shutil.rmtree(DB_PATH.parent)
+    # every candidate's measurement, as the co-design flow takes it
+    measured, measure_one = [], measure.measure_one
+
+    def spy(*args, **kwargs):
+        res = measure_one(*args, **kwargs)
+        measured.append(res)
+        return res
+
+    measure.measure_one = spy
     for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    for app in APPS:
-        print("$ python -m repro_torch.tuner " + " ".join(app + TUNER_FLAGS),
-              flush=True)
-        rc = tuner_main(app + TUNER_FLAGS)
-        require(rc == 0, f"tuner exited {rc}")
+    try:
+        for app in APPS:
+            print("$ python -m repro_torch.tuner " + " ".join(
+                app + TUNER_FLAGS), flush=True)
+            rc = tuner_main(app + TUNER_FLAGS)
+            require(rc == 0, f"tuner exited {rc}")
+    finally:
+        measure.measure_one = measure_one
     launches = {k.__name__: k.launches for k in INTRINSICS}
     print(f"main path took {time.perf_counter() - t0:.1f} s; launches "
           f"{launches}")
@@ -466,6 +564,7 @@ def run_main_path(torch):
     print(f"tuning DB: {len(db.records)} cuda records, calibration "
           f"{sorted(db.calibration.corrections)}, {len(db.failures)} "
           f"structural lowering rejections")
+    _print_candidates(torch, measured, db)
 
     from repro_torch.kernels import ops, ref
     ops.reset_dispatch()
@@ -482,6 +581,43 @@ def run_main_path(torch):
     print(f"tuned ops.matmul 1024^3 with the DB's blocks {blocks}: max abs "
           f"err {err:.3g} ok")
     return launches, db
+
+
+def _print_candidates(torch, measured, db) -> None:
+    """The distinct measured times of the gemm and conv2d candidates, each
+    with its plan, and whether gemm_conv's commit moved from the one made
+    while a CTA owned one whole block."""
+    for op in ("gemm", "conv2d"):
+        times = {}
+        for r in measured:
+            if r.ok and r.point.op == op:
+                times.setdefault(r.point.blocks, r.latency_s)
+        print(f"  {op} candidates: {len(times)} distinct blocks, "
+              f"{len(set(times.values()))} distinct measured times")
+        for blocks, t in sorted(times.items(), key=lambda kv: kv[1]):
+            pt = next(r.point for r in measured if r.ok
+                      and r.point.blocks == blocks and r.point.op == op)
+            p = _plan(op, _shape_of(op, pt.shape), dict(blocks),
+                      torch.float32)
+            print(f"    {dict(blocks)} -> tile {p.tile}, {p.splits} splits, "
+                  f"{p.ctas} CTAs: {t * 1e3:.4f} ms")
+    committed = {op: db.best_config(op, shape, "float32", "cuda") for op, shape
+                 in (("gemm", (1024, 1024, 1024)),
+                     ("conv2d", (256, 256, 14, 14, 3, 3)))}
+    hw = db.apps.get("gemm_conv", {}).get("hw", {})
+    moved = "unchanged from" if committed == EARLIER_COMMIT else "changed from"
+    print(f"  gemm_conv committed pe {hw.get('pe_rows')}x{hw.get('pe_cols')}"
+          f"x{hw.get('pe_depth')}, blocks {committed}; {moved} the earlier "
+          f"design's {EARLIER_COMMIT}")
+
+
+def _shape_of(op, key):
+    """A tuning-DB shape key as phase 3 writes the shape: conv2d's (K, C,
+    X, Y, R, S) as (K, C, H, W, R, S)."""
+    if op == "conv2d":
+        k, c, x, y, r, s = key
+        return (k, c, x + r - 1, y + s - 1, r, s)
+    return key
 
 
 def _time_ms(torch, fn, budget_ms: float = 100.0) -> float:
@@ -579,10 +715,47 @@ def time_kernels(torch, db, launches, rates) -> list[dict]:
             "blocks": blocks, "dtype": "float32",
             "ms_default_blocks": _time_ms(torch, lambda: kern(*ins, **default)),
             "ms_graph": _time_graph_ms(torch, lambda: kern(*ins, **blocks)),
+            "ms_graph_default_blocks": _time_graph_ms(
+                torch, lambda: kern(*ins, **default)),
             "library_ms_graph": _time_graph_ms(torch, lambda: lib(*ins)),
             "host_ms": _host_ms(torch, lambda: kern(*ins, **blocks)),
             "library_host_ms": _host_ms(torch, lambda: lib(*ins)),
         })
+    # gemm and conv2d: the plan at the committed and the default block, and
+    # the time at one block of each legal tile class (the spread the
+    # measured flow can see)
+    for r_ in rows:
+        name = r_["name"]
+        if name not in ("gemm", "conv2d"):
+            continue
+        kern, ins = (gemm, (a, b)) if name == "gemm" else (conv2d, (ca, cw))
+        shape = (1024, 1024, 1024) if name == "gemm" else \
+            (256, 256, 16, 16, 3, 3)
+        for key, blk in (("plan", r_["blocks"]),
+                         ("plan_default_blocks", ops.DEFAULT_BLOCKS[name])):
+            p = _plan(name, shape, blk, f32)
+            r_[key] = {"tile": p.tile, "splits": p.splits, "ctas": p.ctas}
+        # the kernel's and the plain version's distance from a float64
+        # result: a split re-associates the float32 sums
+        exact = (a.double() @ b.double() if name == "gemm" else
+                 F.conv2d(ca[None].double(), cw.double())[0])
+        plain = ref.gemm_ref if name == "gemm" else ref.conv2d_ref
+        r_["max_abs_err_f64"] = float(
+            (kern(*ins, **r_["blocks"]).double() - exact).abs().max())
+        r_["plain_max_abs_err_f64"] = float(
+            (plain(*ins).double() - exact).abs().max())
+        r_["tiles"] = []
+        for blk in ([dict(bm=tm, bn=tn, bk=tk) for tm, tn, tk in GEMM_TILES]
+                    if name == "gemm" else
+                    [dict(bk=tm) for tm in CONV_TILES]):
+            p = _plan(name, shape, blk, f32)
+            _close(torch, kern(*ins, **blk), ref.gemm_ref(*ins) if name ==
+                   "gemm" else ref.conv2d_ref(*ins), *TOL[name]["float32"])
+            r_["tiles"].append({
+                "blocks": blk, "tile": p.tile, "splits": p.splits,
+                "ctas": p.ctas,
+                "ms": _time_ms(torch, lambda: kern(*ins, **blk)),
+                "ms_graph": _time_graph_ms(torch, lambda: kern(*ins, **blk))})
     # gemv in bfloat16 (half the bytes), replayed from a graph
     gb, gxb = ga.bfloat16(), gx.bfloat16()
     _close(torch, gemv(gb, gxb), ref.gemv_ref(gb, gxb), *TOL["gemv"]["bfloat16"])

@@ -251,23 +251,10 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 128;  // 4 warps, 16 query rows each
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, zero-filled (nothing read) where !pred
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using hasco::cp_async16;
+using hasco::cp_async_commit;
+using hasco::cp_async_wait;
+using hasco::smem_u32;
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu",
            "flash_attention.cu", "rwkv6.cu", "mamba2.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tile_mm.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libhasco_kernels.so"
@@ -38,10 +38,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
-    "hasco_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hasco_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hasco_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "hasco_dot": [_P, _P, _P, _P, _LL, _LL, _I, _P],
-    "hasco_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hasco_conv2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
     "hasco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LLP,
                               _I, _I, _F, _F, _I, _P],
     "hasco_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -127,6 +128,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``: the kernels' plans
+    size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(rc: int, kernel: str) -> None:

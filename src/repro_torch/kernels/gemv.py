@@ -9,7 +9,6 @@ H100 and what the design does about it is noted in the CUDA source.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -45,11 +44,6 @@ def plan(m: int, k: int, itemsize: int, n_sm: int, bm: int,
     return GemvPlan(block, -(-k // span), span)
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def gemv(a: torch.Tensor, x: torch.Tensor, *, bm: int = 512,
          bk: int = 512) -> torch.Tensor:
     """y[m] = sum_k A[m,k] x[k] with f32 accumulation; returns (M,) in A's
@@ -67,7 +61,7 @@ def gemv(a: torch.Tensor, x: torch.Tensor, *, bm: int = 512,
     m, k = a.shape
     if min(m, k) < 1:
         raise ValueError(f"gemv kernel takes no empty dims: {(m, k)}")
-    p = plan(m, k, a.element_size(), _sm_count(a.device.index), bm, bk)
+    p = plan(m, k, a.element_size(), cuda_lib.sm_count(a.device.index), bm, bk)
     out = torch.empty((m,), dtype=a.dtype, device=a.device)
     partial = (torch.empty((p.splits, m), dtype=torch.float32,
                            device=a.device) if p.splits > 1 else out)

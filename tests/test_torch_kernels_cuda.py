@@ -33,11 +33,19 @@ import torch
 from repro_torch.kernels import (conv2d, dot, flash_attention, gemm, gemv,
                                  mamba2, ops, ref, rwkv6, xla_attention,
                                  xla_linear)
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.conv2d import plan as conv_plan
 from repro_torch.kernels.flash_attention import route
+from repro_torch.kernels.gemm import plan as gemm_plan
 
 RNG = np.random.default_rng(7)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BLOCKS = [(32, 32, 32), (17, 96, 512), (2048, 2048, 2048), (1, 1, 1)]
+# every CTA tile gemm and conv2d are compiled for (kernels/gemm.py,
+# kernels/conv2d.py)
+GEMM_TILES = [(tm, tn, tk) for tm in (32, 64) for tn in (32, 64)
+              for tk in (8, 16, 32)]
+CONV_TILES = (32, 64, 128)
 
 
 @pytest.fixture
@@ -136,6 +144,106 @@ def test_conv2d_kernel_matches_plain(cuda, dtype, shape, bk):
     wt = _on(cuda, kk, c, r, r, dtype=DTYPES[dtype])
     _close(conv2d(a, wt, bk=bk), ref.conv2d_ref(a, wt),
            *_tol(dtype, conv=True))
+
+
+def _view(dev, offset, *shapes, dtype):
+    """Contiguous tensors of ``shapes`` as views into one buffer, the first
+    ``offset`` elements in: with an odd offset none is 16-byte aligned."""
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    buf = _on(dev, offset + sum(sizes), dtype=dtype)
+    out, at = [], offset
+    for sh, n in zip(shapes, sizes):
+        out.append(buf[at:at + n].view(sh))
+        at += n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tile", GEMM_TILES)
+def test_gemm_kernel_runs_every_legal_tile(cuda, dtype, tile):
+    a, b = _view(cuda, 0, (200, 1000), (1000, 130), dtype=DTYPES[dtype])
+    p = gemm_plan(200, 130, 1000, a.element_size(),
+                  cuda_lib.sm_count(cuda.index or 0), *tile)
+    assert p.tile == tile and p.splits > 1     # ragged, and K split
+    before = gemm.launches
+    got = gemm(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
+    assert gemm.launches == before + 1
+    _close(got, ref.gemm_ref(a, b), *_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,blocks,offset", [
+    ((64, 64, 4096), (64, 64, 8), 0),         # one tile: K split 256 ways
+    ((1024, 1024, 1024), (256, 256, 128), 0),  # the main path's block
+    ((300, 200, 1024), (64, 64, 32), 3),       # A and B start off 16 bytes
+    ((130, 257, 65), (64, 32, 16), 1),
+    ((33, 40, 17), (17, 96, 9), 0),            # K*size not a multiple of 16
+    ((50, 20, 777), (1, 1, 1), 0),
+])
+def test_gemm_kernel_is_bit_stable_split_and_unaligned(cuda, dtype, shape,
+                                                       blocks, offset):
+    m, n, k = shape
+    a, b = _view(cuda, offset, (m, k), (k, n), dtype=DTYPES[dtype])
+    bm, bn, bk = blocks
+    c1, c2 = gemm(a, b, bm=bm, bn=bn, bk=bk), gemm(a, b, bm=bm, bn=bn, bk=bk)
+    assert torch.equal(c1, c2)                  # same bits on every run
+    _close(c1, ref.gemm_ref(a, b), *_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tile", CONV_TILES)
+def test_conv2d_kernel_runs_every_legal_tile(cuda, dtype, tile):
+    a = _on(cuda, 20, 18, 17, dtype=DTYPES[dtype])
+    wt = _on(cuda, 130, 20, 3, 3, dtype=DTYPES[dtype])
+    p = conv_plan(130, 20, 16, 15, 3, 3, a.element_size(),
+                  cuda_lib.sm_count(cuda.index or 0), tile)
+    assert p.tile[0] == tile and p.splits > 1
+    before = conv2d.launches
+    got = conv2d(a, wt, bk=tile)
+    assert conv2d.launches == before + 1
+    _close(got, ref.conv2d_ref(a, wt), *_tol(dtype, conv=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,bk", [
+    ((256, 256, 16, 16, 3, 3), 64),      # the main path's layer, split 24
+    ((24, 16, 11, 13, 3, 2), 17),        # R != S, spans end mid-taps
+    ((40, 17, 9, 20, 1, 4), 96),
+    ((70, 9, 12, 12, 2, 5), 1),
+    ((33, 5, 7, 30, 5, 1), 100000),
+])
+def test_conv2d_kernel_is_bit_stable_split_and_r_ne_s(cuda, dtype, shape,
+                                                      bk):
+    kk, c, h, w, r, s = shape
+    a = _on(cuda, c, h, w, dtype=DTYPES[dtype])
+    wt = _on(cuda, kk, c, r, s, dtype=DTYPES[dtype])
+    o1, o2 = conv2d(a, wt, bk=bk), conv2d(a, wt, bk=bk)
+    assert torch.equal(o1, o2)                  # same bits on every run
+    _close(o1, ref.conv2d_ref(a, wt), *_tol(dtype, conv=True))
+
+
+@pytest.mark.cuda
+def test_gemm_and_conv2d_replay_from_a_cuda_graph(cuda):
+    """The tiles above 48 KB of shared memory opt in once, outside any
+    capture; replayed launches give the eager bits."""
+    a, b = _on(cuda, 1024, 1024), _on(cuda, 1024, 1024)
+    x, w = _on(cuda, 256, 16, 16), _on(cuda, 256, 256, 3, 3)
+    eager = (gemm(a, b, bm=256, bn=256, bk=128), conv2d(x, w, bk=128))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gemm(a, b, bm=256, bn=256, bk=128), conv2d(x, w, bk=128)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (gemm(a, b, bm=256, bn=256, bk=128), conv2d(x, w, bk=128))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, e) for o, e in zip(outs, eager))
 
 
 @pytest.mark.cuda
