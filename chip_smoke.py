@@ -9,7 +9,8 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
 
   1. the card's name and power limit (``nvidia-smi``), torch and CUDA
      versions; TF32 off for PyTorch's float32 products and convolutions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed);
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed); no
+     flash tensor-core (D 80, 128), GEMM/conv tile or mamba2 kernel spills;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and at ragged shapes with odd blocks, float32 and
      bfloat16, with the tolerances of ``tests/test_kernels.py``; ``dot``,
@@ -17,7 +18,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      (``gemv`` also at the block that once gave one CTA, and at K not a
      multiple of 8; ``gemm`` and ``conv2d`` at every legal CTA tile, with
      the reduction split, at unaligned operands and at R != S), each gemm
-     and conv2d case printing its plan (tile, splits, CTAs);
+     and conv2d case printing its plan (tile, splits, CTAs); ``dot`` gives
+     the same bits at bk 96, 2048 and 131072 at 2^24, on aligned views and
+     on views off a 16-byte boundary by equal and by different offsets;
   4. the main path: ``python -m repro_torch.tuner ... --measure --backend
      cuda`` for two applications at the paper's sizes into a fresh tuning
      DB, with every kernel's launch count read from that run alone; the
@@ -30,7 +33,7 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      back to back from Python and replayed from a CUDA graph (device time
      without the host's launch cost), with the host time a call; gemv also
      in bfloat16; gemm and conv2d with their plans, and timed at one block
-     of every legal tile class;
+     of every legal tile class; dot with its plan (CTAs, span);
   6. the flash attention kernel against its plain version on the card,
      float32 and bfloat16, at the forward's shape and at ragged ones (Sq <
      Skv and Sq > Skv, head dims 80/128/256, GQA, soft-cap, window, strided
@@ -58,7 +61,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      card, float32 and bfloat16, with and without a state: the forwards'
      shapes, ragged T (1, a chunk -1 and +1, 1000), Dk != Dv and N != P, b/c
      as stride-0 views, strong and weak decay (the carried state dominant),
-     and streaming (two chained half calls equal one whole call);
+     and streaming (two chained half calls equal one whole call); mamba2
+     with b/c as stride-0 views (the Gram made once a chunk for every head)
+     gives the same bits as with b/c copied per head;
  11. rwkv6-3b's full-sequence forward at full width and depth over 1 x 4096
      tokens (one rwkv6 launch per layer, counted from that run alone), with
      phase 7's comparisons and the same two forwards on the weights cast
@@ -72,7 +77,10 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      tensor-core route);
  14. zamba2-2.7b served as in phase 12;
  15. rwkv6 and mamba2 timed at the forwards' shapes beside their bounds and
-     plain versions (no single PyTorch call computes either).
+     plain versions (no single PyTorch call computes either), back to back
+     and replayed from a CUDA graph; mamba2 with its plan, its device time
+     by kernel (torch.profiler), and the bytes of its span states with the
+     floor they would set at the HBM rate (derived, not measured).
 
 Each model is freed before the next one is drawn.
 
@@ -261,6 +269,12 @@ def main() -> int:
     require(bool(tiles) or not info["log"], "no ptxas report for the tiles")
     for line in tiles:
         require(line.endswith(" 0 bytes spilled"), f"a tile spills: {line}")
+    # the chunk-parallel mamba2 kernels: no spills in any pass or route
+    ssd = [ln for ln in report if ln.startswith("mamba2_")]
+    require(bool(ssd) or not info["log"], "no ptxas report for mamba2")
+    for line in ssd:
+        require(line.endswith(" 0 bytes spilled"),
+                f"a mamba2 kernel spills: {line}")
 
     phase("3. kernels against their plain versions")
     check_kernels(torch)
@@ -292,6 +306,11 @@ def main() -> int:
             print(f"    tile {t['tile']} ({t['splits']} splits, {t['ctas']} "
                   f"CTAs; blocks {t['blocks']}): {t['ms']:.4f} ms, replayed "
                   f"{t['ms_graph']:.4f} ms")
+    dot_row = next(r for r in rows if r["name"] == "dot")
+    print(f"  dot plan at the committed blocks {dot_row['plan']}, at the "
+          f"default blocks {dot_row['plan_default_blocks']}; replayed from a "
+          f"CUDA graph at the default blocks "
+          f"{dot_row['ms_graph_default_blocks']:.4f} ms")
     gemv_row = next(r for r in rows if r["name"] == "gemv")
     print(f"  gemv    bfloat16 replayed from a CUDA graph: "
           f"{gemv_row['bf16_ms_graph']:.4f} ms, torch.mv "
@@ -339,12 +358,25 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase("15. rwkv6 and mamba2 timed at the forwards' shapes")
-    for row in time_recurrences(torch, fwd_launches, rates, bf16_peak):
-        print(f"  {row['name']} {row['ms']:.4f} ms  bound "
+    rec_rows, span_floor = time_recurrences(torch, fwd_launches, rates,
+                                            bf16_peak)
+    for row in rec_rows:
+        print(f"  {row['name']} {row['ms']:.4f} ms (replayed from a CUDA "
+              f"graph {row['ms_graph']:.4f} ms)  bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']}  plain "
               f"{row['plain_ms']:.4f} ms  library none ({row['library']})  "
               f"launches {row['launches']}  max_abs_err "
               f"{row['max_abs_err']:.3g}")
+        if "plan" in row:
+            # derived, not measured: the span states' traffic at the HBM
+            # rate, though they fit in L2 at this shape
+            print(f"  {row['name']} plan {row['plan']}: span states "
+                  f"{span_floor['intermediate_bytes'] / 1e6:.1f} MB of "
+                  f"traffic, a derived floor of "
+                  f"{span_floor['floor_ms']:.4f} ms at the HBM rate")
+            passes = row["passes_ms"] or "not measured (no device time)"
+            print(f"    device time a call by kernel (torch.profiler): "
+                  f"{passes}")
         rows.append(row)
     flash_row = next(r_ for r_ in rows if r_["name"] == "flash_attention")
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
@@ -514,6 +546,19 @@ def check_kernels(torch) -> None:
                 print(f"  {op:7s} {dt:8s} {str(shape):22s} {blk}"
                       f"{_plan_note(op, shape, blk, dtype)}: max abs err "
                       f"{err:.3g} (rtol {rtol}, atol {atol}) ok")
+        # dot: the plan ignores bk, so every block gives the same bits; views
+        # that start off a 16-byte boundary, by equal and by different offsets
+        rtol, atol = TOL["dot"][dt]
+        k = 1 << 24
+        buf = _rand(torch, gen, 2 * k + 16, dtype=dtype)
+        for oa, ob in ((0, 0), (3, 3), (1, 2)):
+            a, b = buf[oa:oa + k], buf[k + 8 + ob:2 * k + 8 + ob]
+            got = [dot(a, b, bk=bk) for bk in (96, 2048, 131072)]
+            require(all(torch.equal(g, got[0]) for g in got[1:]),
+                    f"dot bits differ across bk at offsets {(oa, ob)}")
+            err = _close(torch, got[0], ref.dot_ref(a, b), rtol, atol)
+            print(f"  dot     {dt:8s} 2^24 at element offsets {(oa, ob)}: the "
+                  f"same bits at bk 96, 2048, 131072; max abs err {err:.3g} ok")
 
 
 def run_main_path(torch):
@@ -763,6 +808,14 @@ def time_kernels(torch, db, launches, rates) -> list[dict]:
     gemv_row["bf16_ms_graph"] = _time_graph_ms(torch, lambda: gemv(gb, gxb))
     gemv_row["bf16_library_ms_graph"] = _time_graph_ms(
         torch, lambda: torch.mv(gb, gxb))
+    # dot: the geometry at the committed and the default bk (the same)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.dotprod import plan as dot_plan
+    dot_row = next(r_ for r_ in rows if r_["name"] == "dot")
+    for key, blk in (("plan", dot_row["blocks"]),
+                     ("plan_default_blocks", ops.DEFAULT_BLOCKS["dot"])):
+        p = dot_plan(1 << 24, 4, cuda_lib.sm_count(0), blk["bk"])
+        dot_row[key] = {"block": p.block, "ctas": p.ctas, "span": p.span}
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
     return rows
 
@@ -904,7 +957,7 @@ class _CheckedOps:
     comparisons, outside every counted run."""
 
     def __init__(self, torch):
-        self.torch, self.worst = torch, {}
+        self.torch, self.worst, self.flips = torch, {}, {}
 
     def _both(self, name, tol, args, kwargs):
         from repro_torch.kernels import ops, plain
@@ -922,6 +975,11 @@ class _CheckedOps:
             errs.append(_close(self.torch, g, w, rtol, atol * scale))
         n, worst = self.worst.get(name, (0, 0.0))
         self.worst[name] = (n + 1, max(worst, errs[0]))
+        if name != "attention":
+            # the share of outputs rounded otherwise than the plain version
+            # rounds them: what the model's depth amplifies
+            self.flips[name] = max(self.flips.get(name, 0.0), float(
+                (got[0] != want[0]).float().mean()))
         return got
 
     def attention(self, *args, **kwargs):
@@ -1014,7 +1072,9 @@ def run_forward(torch, arch: str) -> dict:
     for name, (n, err) in sorted(checked.worst.items()):
         print(f"  {name}: {n} calls on the model's own inputs, each within "
               f"its bfloat16 tolerance of the plain version (max abs err "
-              f"{err:.3g})")
+              f"{err:.3g}" + (f"; at most {checked.flips[name]:.3g} of a call's "
+                              f"outputs rounded otherwise" if name in
+                              checked.flips else "") + ")")
     if "forward_f32" in lim:
         p32 = tree_map(lambda t: t.float(), params)
         with torch.no_grad():
@@ -1219,7 +1279,7 @@ def _mamba2_inputs(torch, gen, b, t, h, p, n, decay, state, shared, dtype):
     return x.to(dtype), a.to(dtype), bb, cc, s0
 
 
-def _check_recurrence(torch, kernel, plain, ins, dt) -> float:
+def _check_recurrence(torch, kernel, plain, ins, dt) -> tuple:
     out, st = kernel(*ins)
     torch.cuda.synchronize()
     want_out, want_st = plain(*ins)
@@ -1229,11 +1289,25 @@ def _check_recurrence(torch, kernel, plain, ins, dt) -> float:
             "outputs vanish: the case tests nothing")
     err = _close(torch, out, want_out, *LIN_TOL[dt])
     _close(torch, st, want_st, *STATE_TOL)
-    return err
+    # bfloat16: the share of outputs whose rounding differs from the plain
+    # version's, what a deep model amplifies (float32 outputs all differ in
+    # their last bits)
+    flips = (float((out != want_out).float().mean())
+             if out.dtype == torch.bfloat16 else None)
+    return err, flips
+
+
+def _order_flips(torch, ins) -> float:
+    """The share of mamba2 outputs whose rounding the plain version's own
+    summation order moves: its chunk of 64 against its default 128."""
+    from repro_torch.kernels import xla_linear
+    return float((xla_linear.mamba2(*ins, chunk=64)[0]
+                  != xla_linear.mamba2(*ins)[0]).float().mean())
 
 
 def check_recurrences(torch) -> None:
-    from repro_torch.kernels import mamba2, rwkv6, xla_linear
+    from repro_torch.kernels import cuda_lib, mamba2, rwkv6, xla_linear
+    from repro_torch.kernels.mamba2 import plan as mamba2_plan
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     rwkv6_cases = [
@@ -1263,18 +1337,41 @@ def check_recurrences(torch) -> None:
         dt = str(dtype).removeprefix("torch.")
         for case in rwkv6_cases:
             ins = _rwkv6_inputs(torch, gen, *case, dtype)
-            err = _check_recurrence(torch, rwkv6, xla_linear.rwkv6, ins, dt)
+            err, flips = _check_recurrence(torch, rwkv6, xla_linear.rwkv6,
+                                           ins, dt)
             print(f"  rwkv6  {dt:8s} B{case[0]} T{case[1]} H{case[2]} "
                   f"Dk{case[3]} Dv{case[4]} {case[5]} decay, state "
-                  f"{case[6]}: max abs err {err:.3g} ok")
+                  f"{case[6]}: max abs err {err:.3g}" + (
+                      "" if flips is None else
+                      f", outputs rounded otherwise {flips:.3g}") + " ok")
         for case in mamba2_cases:
             ins = _mamba2_inputs(torch, gen, *case, dtype)
             require(not case[7] or ins[2].stride(2) == 0, "b lost stride 0")
-            err = _check_recurrence(torch, mamba2, xla_linear.mamba2, ins,
-                                    dt)
+            err, flips = _check_recurrence(torch, mamba2, xla_linear.mamba2,
+                                           ins, dt)
+            if case[7]:
+                # the Gram made once a chunk for every head (stride 0) gives
+                # the bits of each head's own Gram (b and c copied per head),
+                # where both take one span plan (all these cases on an H100)
+                sms = cuda_lib.sm_count(0)
+                require(len({mamba2_plan(*case[:5], dtype == torch.bfloat16,
+                                         sh, sms).spans
+                             for sh in (True, False)}) == 1,
+                        f"mamba2 span plans differ at {case}")
+                got = mamba2(*ins)
+                own = mamba2(ins[0], ins[1], ins[2].contiguous(),
+                             ins[3].contiguous(), ins[4])
+                require(all(torch.equal(g_, o_) for g_, o_ in zip(got, own)),
+                        f"mamba2 shared Gram bits differ at {case}")
             print(f"  mamba2 {dt:8s} B{case[0]} T{case[1]} H{case[2]} "
                   f"P{case[3]} N{case[4]} {case[5]} decay, state {case[6]},"
-                  f" b/c shared {case[7]}: max abs err {err:.3g} ok")
+                  f" b/c shared {case[7]}"
+                  + (" (same bits as per-head b/c)" if case[7] else "")
+                  + f": max abs err {err:.3g}" + (
+                      "" if flips is None else
+                      f", outputs rounded otherwise {flips:.3g} (the plain "
+                      f"version at chunk 64 against itself at 128: "
+                      f"{_order_flips(torch, ins):.3g})") + " ok")
     # streaming: two chained half calls equal one whole call
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).removeprefix("torch.")
@@ -1296,14 +1393,15 @@ def check_recurrences(torch) -> None:
               f"max abs err {e1:.3g}, mamba2 {e2:.3g} ok")
 
 
-def time_recurrences(torch, launches, rates, bf16_peak) -> list[dict]:
+def time_recurrences(torch, launches, rates, bf16_peak) -> tuple:
     """Both kernels at the forwards' shapes in bfloat16.  Bytes: each input
     read once (b and c at their stored size: one group shared over the
     heads), the output and the float32 final state written once.
     Operations of the chunked algorithm per token and head: rwkv6 4 Dk Dv
     (state read and update) + 3 L Dk (pairwise scores) + L Dv (scores x
     v), L = 16; mamba2 4 N P + L N + L P (the Gram and its product, half of
-    each L x L block), L = 64."""
+    each L x L block), L = 64.  Also returns mamba2's span-state traffic
+    and the floor it would set at the HBM rate (derived, not measured)."""
     from repro_torch.kernels import mamba2, rwkv6, xla_linear
 
     bw, _ = rates
@@ -1336,6 +1434,7 @@ def time_recurrences(torch, launches, rates, bf16_peak) -> list[dict]:
             "replaces": LIN_META[name][1], "launches": launches[name],
             "max_abs_err": err,
             "ms": _time_ms(torch, lambda: kern(*ins)),
+            "ms_graph": _time_graph_ms(torch, lambda: kern(*ins), calls=5),
             "plain_ms": _time_ms(torch, lambda: plain(*ins)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1343,8 +1442,29 @@ def time_recurrences(torch, launches, rates, bf16_peak) -> list[dict]:
             "library": "no single PyTorch call computes it",
             "dtype": "bfloat16", "shape": shape,
         })
+    # mamba2's span states: written by pass 1, read and written by pass 2,
+    # read by pass 3; their floor counts that traffic at the HBM rate (they
+    # stay in the 50 MB L2 where they fit)
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.mamba2 import plan as mamba2_plan
+    m_row = rows[1]
+    p_ = mamba2_plan(b, t, h2, p, n, True, True, cuda_lib.sm_count(0))
+    m_row["plan"] = p_._asdict()
+    span_floor = {"intermediate_bytes": 4 * p_.state_bytes, "floor_ms":
+                  m_row["bound_ms"] + 4 * p_.state_bytes / bw * 1e3}
+    # where mamba2's time goes: device time of each pass's kernel over 5
+    # calls, by torch.profiler (empty where the profiler sees no device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            mamba2(x, a, bb, cc)
+        torch.cuda.synchronize()
+    m_row["passes_ms"] = {
+        e.key: e.device_time_total / 5 / 1e3 for e in prof.key_averages()
+        if "mamba2" in e.key and e.device_time_total > 0}
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
-    return rows
+    return rows, span_floor
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,9 +2,10 @@
 //
 // Every kernel takes float32 or bfloat16 operands and accumulates in
 // float32 (no TF32): the contract of the reference's
-// `preferred_element_type=jnp.float32`.  All but one convert to float32 on
-// load and run float32 FMA; flash attention's bfloat16 route multiplies
-// bfloat16 on the tensor cores, whose products are exact in float32.
+// `preferred_element_type=jnp.float32`.  Most convert to float32 on load
+// and run float32 FMA; the bfloat16 routes of flash attention and mamba2
+// multiply bfloat16 on the tensor cores, whose products are exact in
+// float32, and split a float32 operand into two bfloat16 terms.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +68,54 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bfloat16 tensor cores (mma.sync m16n8k16), for flash attention and mamba2
+//
+// Fragment layouts of m16n8k16 (lane = 4g + t): A regs hold (row g | g+8,
+// cols 2t,2t+1 | 2t+8,2t+9), B regs (k 2t,2t+1 | 2t+8,2t+9; col g), the
+// accumulator (row g | g+8; cols 2t, 2t+1).
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bfloat16 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// (v0, v1) as N bfloat16 terms, each the bfloat16 rounding of what the terms
+// before it left (hi = bf16(v), lo = bf16(v - hi), ...): the terms summed keep
+// ~8 N bits of each float32 value
+template <int N>
+__device__ __forceinline__ void split_bf16(float v0, float v1, unsigned (&terms)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    const float2 hf = __bfloat1622float2(h);
+    terms[i] = as_u32(h);
+    v0 -= hf.x;
+    v1 -= hf.y;
+  }
 }
 
 __host__ __device__ __forceinline__ long long cdiv(long long a, long long b) {

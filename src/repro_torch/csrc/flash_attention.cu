@@ -256,32 +256,10 @@ using hasco::cp_async_commit;
 using hasco::cp_async_wait;
 using hasco::smem_u32;
 
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bfloat16 in, float32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const unsigned*>(&v);
-}
+using hasco::as_u32;
+using hasco::ldsm_x4;
+using hasco::ldsm_x4_t;
+using hasco::mma;
 
 // rows [row0, row0 + ROWS) of one head (base: its first row) into smem with
 // row stride D + 8, zero-filling rows at or past n_rows

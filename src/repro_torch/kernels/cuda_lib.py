@@ -40,7 +40,7 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "hasco_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hasco_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "hasco_dot": [_P, _P, _P, _P, _LL, _LL, _I, _P],
+    "hasco_dot": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "hasco_conv2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
     "hasco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LLP,
@@ -49,8 +49,8 @@ SIGNATURES = {
                                  _LLP, _I, _I, _F, _F, _P],
     "hasco_rwkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LLP,
                     _I, _P],
-    "hasco_mamba2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LLP, _I,
-                     _P],
+    "hasco_mamba2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _LLP, _I, _I, _I, _P],
 }
 
 

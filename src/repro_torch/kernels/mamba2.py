@@ -7,13 +7,19 @@ Pallas kernel, which asserts ``T % 64 == 0``, it takes any T >= 1.  The
 kernel reads x, a, b and c in place through their batch, time and head
 strides, so b and c may be ``expand`` views with a head stride of 0 (one
 group shared by every head, as zamba2 has) and are never materialised per
-head.  It writes a fresh output in x's dtype and a fresh float32 final
-state.  What bounds it on the H100 and what the design does about it is
-noted in the CUDA source.  Its plain version is ``xla_linear.mamba2``.
+head.  It runs three passes over spans of chunks (:func:`plan`): the spans'
+local states in parallel, a short pass that carries the state across the
+spans, and the outputs in parallel; where b and c are shared, the first
+pass also writes each chunk's Gram once, which the outputs pass reads for
+every head.  In bfloat16 the state's products run on the tensor cores, the
+rest on float32 FMA.  It writes a fresh output in x's
+dtype and a fresh float32 final state.  What bounds it on the H100 and what
+the design does about it is noted in the CUDA source.  Its plain version is ``xla_linear.mamba2``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +27,43 @@ from . import cuda_lib
 from .xla_linear import mamba2 as mamba2_plain
 
 MAX_N = 128
+CHUNK = 64              # tokens a chunk: the reference's cumsum restarts here
+SPAN_CHUNKS = 4         # chunks a span at most: 256 tokens
+COLUMNS = {"tc": 64, "simt": 32}   # state columns a CTA owns, per route
+
+
+class Mamba2Plan(NamedTuple):
+    route: str          # "tc" (bfloat16, tensor cores) or "simt" (float32)
+    span_chunks: int    # chunks a span
+    spans: int          # spans over T: the states passed between them
+    heads_per_cta: int  # heads of a pass-3 CTA (b/c head stride 0, bfloat16)
+    ctas: int           # CTAs of pass 3 (pass 1: one a head)
+    state_bytes: int    # the span states, float32
+    gram_bytes: int     # the chunks' Grams, float32, where b/c are shared
+
+
+def plan(b: int, t: int, h: int, p: int, n: int, bf16: bool, shared: bool,
+         n_sm: int) -> Mamba2Plan:
+    """The kernel's geometry for x (b, t, h, p), b/c (b, t, h, n), on a card
+    of ``n_sm`` SMs.  Spans of ``SPAN_CHUNKS`` chunks keep the span states
+    in L2 at long T (21 MB at zamba2-2.7b's 4096 tokens); a shorter T halves
+    the span while the outputs pass would leave SMs idle, or one span would
+    hold every chunk of T.  Where b and c are shared by the heads
+    (``shared``), pass 1 computes each chunk's Gram once into a buffer
+    that every pass-3 CTA reads, and a bfloat16 pass-3 CTA owns two heads."""
+    route = "tc" if bf16 else "simt"
+    heads = 2 if (shared and bf16 and h > 1) else 1
+    p_blocks = -(-p // COLUMNS[route])
+    chunks = -(-t // CHUNK)
+    k = SPAN_CHUNKS
+    while k > 1 and (k >= chunks or
+                     -(-chunks // k) * -(-h // heads) * p_blocks * b < n_sm):
+        k //= 2
+    spans = -(-chunks // k)
+    return Mamba2Plan(route, k, spans, heads,
+                      spans * -(-h // heads) * p_blocks * b,
+                      spans * b * h * n * p * 4,
+                      b * chunks * CHUNK * CHUNK * 4 if shared else 0)
 
 
 def _check_shapes(x, a, b, c, state) -> None:
@@ -62,15 +105,26 @@ def mamba2(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          f"empty dims: {(bs, t, h, p, n)}")
     if max(bs, h) > 65535:
         raise ValueError(f"mamba2 grid too large: B={bs}, H={h}")
+    pl = plan(bs, t, h, p, n, x.dtype == torch.bfloat16,
+              b.stride(2) == 0 and c.stride(2) == 0,
+              cuda_lib.sm_count(x.device.index))
     h0 = None if state is None else state.to(torch.float32).contiguous()
     y = torch.empty((bs, t, h, p), dtype=x.dtype, device=x.device)
     h_t = torch.empty((bs, h, n, p), dtype=torch.float32, device=x.device)
+    spans = torch.empty((bs, h, pl.spans, n, p), dtype=torch.float32,
+                        device=x.device)
+    decays = torch.empty((bs, h, pl.spans), dtype=torch.float32,
+                         device=x.device)
+    gram = (torch.empty((pl.gram_bytes // 4,), dtype=torch.float32,
+                        device=x.device) if pl.gram_bytes else None)
     strides = (ctypes.c_longlong * 15)(
         *(s for z in (x, a, b, c, y) for s in z.stride()[:3]))
     rc = cuda_lib.library().hasco_mamba2(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), h_t.data_ptr(),
-        bs, t, h, p, n, strides, cuda_lib.dtype_code(x.dtype),
+        spans.data_ptr(), decays.data_ptr(),
+        None if gram is None else gram.data_ptr(), bs, t, h, p, n, strides,
+        pl.span_chunks, pl.heads_per_cta, cuda_lib.dtype_code(x.dtype),
         torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(rc, "mamba2")
     mamba2.launches += 1

@@ -134,6 +134,33 @@ def test_dot_kernel_is_deterministic_and_matches_plain(cuda, dtype, bk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
+def test_dot_kernel_gives_the_same_bits_at_any_block(cuda, dtype):
+    # many CTAs: the plan, not bk, sets the geometry and the summation order
+    u = _on(cuda, 1 << 22, dtype=DTYPES[dtype])
+    v = _on(cuda, 1 << 22, dtype=DTYPES[dtype])
+    got = [dot(u, v, bk=bk) for bk in (1, 17, 2048, 131072, 10 ** 6)]
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    rtol, atol = _tol(dtype)
+    _close(got[0], ref.dot_ref(u, v), rtol, atol * 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k", [5000, (1 << 20) + 7])
+@pytest.mark.parametrize("offsets", [(0, 0), (3, 3), (1, 2), (0, 5)],
+                         ids=["aligned", "equal", "different", "b only"])
+def test_dot_kernel_reads_misaligned_views(cuda, dtype, k, offsets):
+    oa, ob = offsets
+    buf = _on(cuda, 2 * k + 16, dtype=DTYPES[dtype])
+    u, v = buf[oa:oa + k], buf[k + 8 + ob:2 * k + 8 + ob]
+    d1, d2 = dot(u, v, bk=96), dot(u, v, bk=131072)
+    assert torch.equal(d1, d2)
+    rtol, atol = _tol(dtype)
+    _close(d1, ref.dot_ref(u, v), rtol, atol * 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape,bk", [((24, 16, 18, 20, 3), 17),
                                       ((8, 4, 9, 9, 1), 96),
                                       ((16, 3, 40, 33, 7), 5),
@@ -393,6 +420,12 @@ MAMBA2_CASES = [
     (1, 1000, 2, 64, 64, "weak", True, True),
     (2, 100, 3, 48, 24, "strong", False, False),
     (1, 70, 2, 16, 128, "weak", True, True),
+    # many chunks and spans; T not a multiple of the span; N != P
+    (1, 4096, 4, 64, 64, "weak", True, True),
+    (1, 4096, 3, 64, 64, "strong", False, False),
+    (1, 1000, 3, 48, 24, "weak", True, True),
+    (1, 700, 2, 16, 128, "strong", True, False),
+    (2, 2000, 5, 64, 128, "weak", False, True),
 ]
 
 
@@ -448,6 +481,35 @@ def test_mamba2_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [
+    # (B, T, H, P, N, decay, state): one span plan with b/c shared or not
+    (1, 256, 4, 64, 64, "weak", True),
+    (2, 63, 2, 64, 64, "weak", False),
+    (1, 70, 2, 16, 128, "weak", True),
+    (1, 1000, 3, 48, 24, "weak", True),
+    (1, 4096, 80, 64, 64, "strong", True),
+    (1, 4096, 80, 64, 128, "weak", False),
+])
+def test_mamba2_shared_gram_gives_each_heads_bits(cuda, dtype, case):
+    """b/c as stride-0 views: pass 1 makes each chunk's Gram once for every
+    head; b/c copied per head: each head's CTA makes its own.  Where both
+    take one span plan, the same bits either way."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.mamba2 import plan
+    b_, t, h, p, n = case[:5]
+    sms = cuda_lib.sm_count(cuda.index)
+    bf16 = dtype == "bfloat16"
+    assert plan(b_, t, h, p, n, bf16, True, sms).spans == \
+        plan(b_, t, h, p, n, bf16, False, sms).spans
+    x, a, b, c, h0 = _mamba2_inputs(cuda, *case, True, DTYPES[dtype])
+    shared = mamba2(x, a, b, c, h0)
+    own = mamba2(x, a, b.contiguous(), c.contiguous(), h0)
+    for got, want in zip(shared, own):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_recurrence_kernels_stream_and_read_strided_views(cuda):
     """Two chained half calls equal one whole call; r/k/v/w read in place
     as views of one packed projection."""
@@ -490,3 +552,24 @@ def test_recurrence_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="N <= 128"):
         nb = _on(cuda, 1, 8, 2, 136)
         mamba2(x, a, nb, nb)
+
+
+@pytest.mark.cuda
+def test_dot_and_mamba2_replay_from_a_cuda_graph(cuda):
+    u, v = _on(cuda, 1 << 22), _on(cuda, 1 << 22)
+    ins = _mamba2_inputs(cuda, 1, 1000, 4, 64, 64, "weak", True, True,
+                         torch.bfloat16)
+    eager = (dot(u, v), *mamba2(*ins))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dot(u, v), mamba2(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (dot(u, v), *mamba2(*ins))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)          # the same bits, replayed
+
