@@ -10,7 +10,8 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
   1. the card's name and power limit (``nvidia-smi``), torch and CUDA
      versions; TF32 off for PyTorch's float32 products and convolutions;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed); no
-     flash tensor-core (D 80, 128), GEMM/conv tile or mamba2 kernel spills;
+     flash tensor-core (D 80, 128), GEMM/conv tile, mamba2 or rwkv6 kernel
+     (nor their shared state pass) spills;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and at ragged shapes with odd blocks, float32 and
      bfloat16, with the tolerances of ``tests/test_kernels.py``; ``dot``,
@@ -63,11 +64,16 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      as stride-0 views, strong and weak decay (the carried state dominant),
      and streaming (two chained half calls equal one whole call); mamba2
      with b/c as stride-0 views (the Gram made once a chunk for every head)
-     gives the same bits as with b/c copied per head;
+     gives the same bits as with b/c copied per head; each rwkv6 case also
+     prints the kernel's and the plain version's max error against the
+     plain version run in float64, and in bfloat16 each one's share of
+     outputs rounded otherwise than the float64 result rounded once, beside
+     the plain version's own share at chunk 16 against 32 (read, no limit);
  11. rwkv6-3b's full-sequence forward at full width and depth over 1 x 4096
      tokens (one rwkv6 launch per layer, counted from that run alone), with
-     phase 7's comparisons and the same two forwards on the weights cast
-     to float32;
+     phase 7's comparisons, the kernel forward against the plain forward at
+     the kernel's own chunk of 16 (read, no limit), and the same two
+     forwards on the weights cast to float32;
  12. rwkv6-3b served as in phase 8: every prefill launches the kernel once
      per layer, each request's prefill logits agree with the kernel
      forward's, and one prompt prefilled in two halves (the state carried
@@ -78,9 +84,10 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
  14. zamba2-2.7b served as in phase 12;
  15. rwkv6 and mamba2 timed at the forwards' shapes beside their bounds and
      plain versions (no single PyTorch call computes either), back to back
-     and replayed from a CUDA graph; mamba2 with its plan, its device time
-     by kernel (torch.profiler), and the bytes of its span states with the
-     floor they would set at the HBM rate (derived, not measured).
+     and replayed from a CUDA graph; each with its plan, its device time
+     by kernel (torch.profiler: span states, state passing, outputs), and
+     the bytes of its span states with the floor they would set at the HBM
+     rate (derived, not measured).
 
 Each model is freed before the next one is drawn.
 
@@ -269,12 +276,15 @@ def main() -> int:
     require(bool(tiles) or not info["log"], "no ptxas report for the tiles")
     for line in tiles:
         require(line.endswith(" 0 bytes spilled"), f"a tile spills: {line}")
-    # the chunk-parallel mamba2 kernels: no spills in any pass or route
-    ssd = [ln for ln in report if ln.startswith("mamba2_")]
-    require(bool(ssd) or not info["log"], "no ptxas report for mamba2")
-    for line in ssd:
-        require(line.endswith(" 0 bytes spilled"),
-                f"a mamba2 kernel spills: {line}")
+    # the chunk-parallel mamba2 and rwkv6 kernels and their shared state
+    # pass: no spills in any pass or route
+    for prefix in ("mamba2_", "rwkv6_", "state_pass_"):
+        lines = [ln for ln in report if ln.startswith(prefix)]
+        require(bool(lines) or not info["log"],
+                f"no ptxas report for {prefix}*")
+        for line in lines:
+            require(line.endswith(" 0 bytes spilled"),
+                    f"a {prefix}* kernel spills: {line}")
 
     phase("3. kernels against their plain versions")
     check_kernels(torch)
@@ -367,16 +377,14 @@ def main() -> int:
               f"{row['plain_ms']:.4f} ms  library none ({row['library']})  "
               f"launches {row['launches']}  max_abs_err "
               f"{row['max_abs_err']:.3g}")
-        if "plan" in row:
-            # derived, not measured: the span states' traffic at the HBM
-            # rate, though they fit in L2 at this shape
-            print(f"  {row['name']} plan {row['plan']}: span states "
-                  f"{span_floor['intermediate_bytes'] / 1e6:.1f} MB of "
-                  f"traffic, a derived floor of "
-                  f"{span_floor['floor_ms']:.4f} ms at the HBM rate")
-            passes = row["passes_ms"] or "not measured (no device time)"
-            print(f"    device time a call by kernel (torch.profiler): "
-                  f"{passes}")
+        # derived, not measured: the span states' traffic at the HBM rate,
+        # though they fit in L2 at this shape
+        floor = span_floor[row["name"]]
+        print(f"  {row['name']} plan {row['plan']}: span states "
+              f"{floor['intermediate_bytes'] / 1e6:.1f} MB of traffic, a "
+              f"derived floor of {floor['floor_ms']:.4f} ms at the HBM rate")
+        passes = row["passes_ms"] or "not measured (no device time)"
+        print(f"    device time a call by kernel (torch.profiler): {passes}")
         rows.append(row)
     flash_row = next(r_ for r_ in rows if r_["name"] == "flash_attention")
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
@@ -398,13 +406,16 @@ def _ptxas_report(log: str) -> list[str]:
         if m:
             mangled = m.group(1)
             # the name is <length><identifier> in the mangling: take the
-            # identifier ending in "kernel" whose length prefix fits it
-            base = next((ident for i in range(len(mangled))
-                         for d in [re.match(r"\d+", mangled[i:])] if d
-                         for ident in [mangled[i + d.end():
-                                               i + d.end() + int(d.group())]]
-                         if ident.endswith("kernel")
-                         and re.fullmatch(r"[A-Za-z_]\w*", ident)), mangled)
+            # last identifier ending in "kernel" whose length prefix fits it
+            # (an anonymous namespace's tag, a hash of the source's path,
+            # comes first and can happen to fit one too)
+            base = max(((i, ident) for i in range(len(mangled))
+                        for d in [re.match(r"\d+", mangled[i:])] if d
+                        for ident in [mangled[i + d.end():
+                                              i + d.end() + int(d.group())]]
+                        if ident.endswith("kernel")
+                        and re.fullmatch(r"[A-Za-z_]\w*", ident)),
+                       default=(0, mangled))[1]
             args = re.findall(
                 r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|(?<=I)(f)(?=[EL])",
                 mangled)
@@ -906,16 +917,18 @@ def check_flash(torch) -> None:
 
 def _compare_logits(torch, got, want) -> dict:
     """Kernel-path logits against plain-path logits (..., V): max abs
-    error, the least cosine similarity over positions, and the share of
-    positions whose argmax agrees."""
+    error, the least cosine similarity over positions (and where it falls),
+    and the share of positions whose argmax agrees."""
     import torch.nn.functional as F
     got, want = got.float(), want.float()
     require(got.shape == want.shape, f"logits {tuple(got.shape)} != "
             f"{tuple(want.shape)}")
     require(bool(torch.isfinite(got).all()), "non-finite logits")
+    cos = F.cosine_similarity(got, want, dim=-1).flatten()
     return {"max_abs_err": float((got - want).abs().max()),
             "max_abs_logit": float(want.abs().max()),
-            "min_cosine": float(F.cosine_similarity(got, want, dim=-1).min()),
+            "min_cosine": float(cos.min()),
+            "worst_position": int(cos.argmin()),
             "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
                                   .float().mean())}
 
@@ -1052,11 +1065,16 @@ def run_forward(torch, arch: str) -> dict:
             ("kernel forward vs the plain forward", logits, plain_logits,
              lim["forward"]),
             ("plain forward with other chunks vs the plain forward",
-             control, plain_logits, None)):
+             control, plain_logits, None),
+            # the recurrences' control runs the kernels' own chunks (16 for
+            # rwkv6, 64 for mamba2): read only, no limit
+            ("kernel forward vs the plain forward with other chunks",
+             logits, control, None)):
         cmp = _compare_logits(torch, got, want)
         print(f"{what}: max abs err {cmp['max_abs_err']:.4g} (max |logit| "
               f"{cmp['max_abs_logit']:.4g}), min cosine "
-              f"{cmp['min_cosine']:.6f}, argmax agrees at "
+              f"{cmp['min_cosine']:.6f} (at position "
+              f"{cmp['worst_position']}), argmax agrees at "
               f"{cmp['argmax_agree']:.4f} of {FWD_TOKENS} positions")
         if limit is not None:
             require(cmp["min_cosine"] >= limit[0],
@@ -1294,7 +1312,7 @@ def _check_recurrence(torch, kernel, plain, ins, dt) -> tuple:
     # their last bits)
     flips = (float((out != want_out).float().mean())
              if out.dtype == torch.bfloat16 else None)
-    return err, flips
+    return err, flips, out, want_out
 
 
 def _order_flips(torch, ins) -> float:
@@ -1303,6 +1321,31 @@ def _order_flips(torch, ins) -> float:
     from repro_torch.kernels import xla_linear
     return float((xla_linear.mamba2(*ins, chunk=64)[0]
                   != xla_linear.mamba2(*ins)[0]).float().mean())
+
+
+def _f64_readings(torch, ins, out, want_out) -> str:
+    """rwkv6 judged by error, not by rounding order: the kernel's and the
+    plain version's max abs error against the plain version run in float64
+    on the same inputs; in bfloat16 also each one's share of outputs that
+    differ from the float64 result rounded once, and the plain version's own
+    flip share at the kernel's chunk of 16 against its default 32.  Read
+    only, no limit."""
+    from repro_torch.kernels import xla_linear
+    ref = xla_linear.rwkv6(*(None if z is None else z.double()
+                             for z in ins))[0]
+    err_k, err_p = (float((z.double() - ref).abs().max())
+                    for z in (out, want_out))
+    line = (f"against float64: kernel max abs err {err_k:.3g}, plain "
+            f"{err_p:.3g}")
+    if out.dtype == torch.bfloat16:
+        once = ref.to(out.dtype)
+        fk, fp = (float((z != once).float().mean()) for z in (out, want_out))
+        order = float((xla_linear.rwkv6(*ins, chunk=16)[0] != want_out)
+                      .float().mean())
+        line += (f"; rounded otherwise than float64 rounded once: kernel "
+                 f"{fk:.3g}, plain {fp:.3g}; the plain version at chunk 16 "
+                 f"against itself at 32: {order:.3g}")
+    return line
 
 
 def check_recurrences(torch) -> None:
@@ -1337,18 +1380,19 @@ def check_recurrences(torch) -> None:
         dt = str(dtype).removeprefix("torch.")
         for case in rwkv6_cases:
             ins = _rwkv6_inputs(torch, gen, *case, dtype)
-            err, flips = _check_recurrence(torch, rwkv6, xla_linear.rwkv6,
-                                           ins, dt)
+            err, flips, out, want = _check_recurrence(
+                torch, rwkv6, xla_linear.rwkv6, ins, dt)
             print(f"  rwkv6  {dt:8s} B{case[0]} T{case[1]} H{case[2]} "
                   f"Dk{case[3]} Dv{case[4]} {case[5]} decay, state "
                   f"{case[6]}: max abs err {err:.3g}" + (
                       "" if flips is None else
-                      f", outputs rounded otherwise {flips:.3g}") + " ok")
+                      f", outputs rounded otherwise {flips:.3g}") + " ok; "
+                  + _f64_readings(torch, ins, out, want))
         for case in mamba2_cases:
             ins = _mamba2_inputs(torch, gen, *case, dtype)
             require(not case[7] or ins[2].stride(2) == 0, "b lost stride 0")
-            err, flips = _check_recurrence(torch, mamba2, xla_linear.mamba2,
-                                           ins, dt)
+            err, flips, _, _ = _check_recurrence(
+                torch, mamba2, xla_linear.mamba2, ins, dt)
             if case[7]:
                 # the Gram made once a chunk for every head (stride 0) gives
                 # the bits of each head's own Gram (b and c copied per head),
@@ -1442,26 +1486,36 @@ def time_recurrences(torch, launches, rates, bf16_peak) -> tuple:
             "library": "no single PyTorch call computes it",
             "dtype": "bfloat16", "shape": shape,
         })
-    # mamba2's span states: written by pass 1, read and written by pass 2,
-    # read by pass 3; their floor counts that traffic at the HBM rate (they
-    # stay in the 50 MB L2 where they fit)
+    # the span states of both: written by pass 1, read and written by pass
+    # 2, read by pass 3; their floor counts that traffic at the HBM rate
+    # (they stay in the 50 MB L2 where they fit)
+    import re
+
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.mamba2 import plan as mamba2_plan
-    m_row = rows[1]
-    p_ = mamba2_plan(b, t, h2, p, n, True, True, cuda_lib.sm_count(0))
-    m_row["plan"] = p_._asdict()
-    span_floor = {"intermediate_bytes": 4 * p_.state_bytes, "floor_ms":
-                  m_row["bound_ms"] + 4 * p_.state_bytes / bw * 1e3}
-    # where mamba2's time goes: device time of each pass's kernel over 5
-    # calls, by torch.profiler (empty where the profiler sees no device)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            mamba2(x, a, bb, cc)
-        torch.cuda.synchronize()
-    m_row["passes_ms"] = {
-        e.key: e.device_time_total / 5 / 1e3 for e in prof.key_averages()
-        if "mamba2" in e.key and e.device_time_total > 0}
+    from repro_torch.kernels.rwkv6 import plan as rwkv6_plan
+    sms = cuda_lib.sm_count(0)
+    plans = {"rwkv6": rwkv6_plan(b, t, h, dk, dk, True, sms),
+             "mamba2": mamba2_plan(b, t, h2, p, n, True, True, sms)}
+    span_floor = {}
+    for row, (name, kern, _, ins, *_) in zip(rows, specs):
+        p_ = plans[name]
+        row["plan"] = p_._asdict()
+        span_floor[name] = {
+            "intermediate_bytes": 4 * p_.state_bytes,
+            "floor_ms": row["bound_ms"] + 4 * p_.state_bytes / bw * 1e3}
+        # where the time goes: device time of each pass's kernel over 5
+        # calls, by torch.profiler (empty where the profiler sees no device)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kern(*ins)
+            torch.cuda.synchronize()
+        row["passes_ms"] = {
+            m.group(1): e.device_time_total / 5 / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0
+            for m in [re.search(r"((?:mamba2|rwkv6|state_pass)\w*kernel"
+                                r"(?:<[^>]*>)?)\(", e.key)] if m}
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
     return rows, span_floor
 

@@ -3,9 +3,9 @@
 // Every kernel takes float32 or bfloat16 operands and accumulates in
 // float32 (no TF32): the contract of the reference's
 // `preferred_element_type=jnp.float32`.  Most convert to float32 on load
-// and run float32 FMA; the bfloat16 routes of flash attention and mamba2
-// multiply bfloat16 on the tensor cores, whose products are exact in
-// float32, and split a float32 operand into two bfloat16 terms.
+// and run float32 FMA; the bfloat16 routes of flash attention, mamba2 and
+// rwkv6 multiply bfloat16 on the tensor cores, whose products are exact in
+// float32, and split a float32 operand into bfloat16 terms.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,7 +70,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- bfloat16 tensor cores (mma.sync m16n8k16), for flash attention and mamba2
+// ---- bfloat16 tensor cores (mma.sync m16n8k16), for flash attention, mamba2
+// and rwkv6
 //
 // Fragment layouts of m16n8k16 (lane = 4g + t): A regs hold (row g | g+8,
 // cols 2t,2t+1 | 2t+8,2t+9), B regs (k 2t,2t+1 | 2t+8,2t+9; col g), the
@@ -101,6 +102,16 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsig
 
 __device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// acc += a b on the tensor cores in a fresh accumulator, then in float32:
+// their accumulation is not rounded to nearest, and a long chain of it
+// (a state carried over every chunk) drifts
+__device__ __forceinline__ void mma_add(float (&acc)[4], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(d, a, b0, b1);
+  acc[0] += d[0], acc[1] += d[1], acc[2] += d[2], acc[3] += d[3];
 }
 
 // (v0, v1) as N bfloat16 terms, each the bfloat16 rounding of what the terms

@@ -21,7 +21,8 @@
 //   1. span states: every (span, head, batch) in parallel walks its S chunks
 //      from h = 0 and writes its local state S_j and its decay
 //      prod_c e^{la_L^c} (float32);
-//   2. state passing: elementwise over (batch, head, n, p), in order over
+//   2. state passing (state_pass.cuh, shared with rwkv6.cu, here at one
+//      decay a span): elementwise over (batch, head, n, p), in order over
 //      the spans, H_{j+1} = decay_j H_j + S_j from the given state (or 0);
 //      H_j, the state entering span j, overwrites S_j, and the last value
 //      is the final state;
@@ -80,6 +81,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "state_pass.cuh"
 
 namespace {
 
@@ -310,7 +312,7 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 using hasco::ldsm_x4_t;
-using hasco::mma;
+using hasco::mma_add;
 using hasco::split_bf16;
 
 constexpr int THREADS = 256;  // 8 warps
@@ -355,16 +357,6 @@ __device__ __forceinline__ void stage_async(bf16* dst, int lds, const bf16* src,
     const bool ok = r < rn && col < cn;
     hasco::cp_async16(dst + r * lds + col, ok ? src + r * rs + col : src, ok);
   }
-}
-
-// acc += a b on the tensor cores in a fresh accumulator, then in float32:
-// their accumulation is not rounded to nearest, and a long chain of it
-// drifts
-__device__ __forceinline__ void mma_add(float (&acc)[4], const unsigned (&a)[4], unsigned b0,
-                                        unsigned b1) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(d, a, b0, b1);
-  acc[0] += d[0], acc[1] += d[1], acc[2] += d[2], acc[3] += d[3];
 }
 
 __device__ __forceinline__ float bf(const bf16* p) { return __bfloat162float(*p); }
@@ -688,39 +680,6 @@ int launch(const void* x, const void* a, const void* b, const void* c, float* S,
 
 }  // namespace tc
 
-// ---- pass 2: the states entering each span, and the final state ----------
-
-constexpr int PASS_THREADS = 256, PASS_BATCH = 8;
-
-// one thread an element of (batch, head, n, p): its states over the spans in
-// order, PASS_BATCH loads in flight ahead of the recurrence
-__global__ void __launch_bounds__(PASS_THREADS)
-mamba2_state_pass_kernel(float* __restrict__ S, const float* __restrict__ dec,
-                         const float* __restrict__ h0, float* __restrict__ hT, long long BH,
-                         int NS, long long NPe) {
-  const long long i = (long long)blockIdx.x * PASS_THREADS + threadIdx.x;
-  if (i >= BH * NPe) return;
-  const long long bh = i / NPe, e = i - bh * NPe;
-  float run = h0 != nullptr ? h0[i] : 0.f;
-  float* s = S + bh * NS * NPe + e;
-  const float* d = dec + bh * NS;
-  for (int j0 = 0; j0 < NS; j0 += PASS_BATCH) {
-    float sj[PASS_BATCH], dj[PASS_BATCH];
-#pragma unroll
-    for (int u = 0; u < PASS_BATCH; ++u) {
-      sj[u] = j0 + u < NS ? s[(long long)(j0 + u) * NPe] : 0.f;
-      dj[u] = j0 + u < NS ? d[j0 + u] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < PASS_BATCH; ++u) {
-      if (j0 + u >= NS) break;
-      s[(long long)(j0 + u) * NPe] = run;
-      run = dj[u] * run + sj[u];
-    }
-  }
-  hT[i] = run;
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
@@ -751,10 +710,7 @@ extern "C" int hasco_mamba2(const void* x, const void* a, const void* b, const v
   for (int pass = 1; pass <= 3; ++pass) {
     int rc = 0;
     if (pass == 2) {
-      const long long BH = (long long)B * H, NPe = (long long)N * P;
-      const unsigned blocks = (unsigned)hasco::cdiv(BH * NPe, PASS_THREADS);
-      mamba2_state_pass_kernel<<<blocks, PASS_THREADS, 0, s>>>(S, dec, h0, hT, BH, NS, NPe);
-      rc = (int)cudaGetLastError();
+      rc = hasco::state_pass(S, dec, h0, hT, (long long)B * H, NS, (long long)N * P, 1, s);
     } else if (dtype == hasco::kFloat32) {
       if (HG != 1) return (int)cudaErrorInvalidValue;
       rc = pass == 3 ? simt::launch<float, true>(x, a, b, c, S, dec, gram, y, B, Tlen, H, P,

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu",
            "flash_attention.cu", "rwkv6.cu", "mamba2.cu")
-HEADERS = ("common.cuh", "tile_mm.cuh")
+HEADERS = ("common.cuh", "tile_mm.cuh", "state_pass.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libhasco_kernels.so"
@@ -47,8 +47,8 @@ SIGNATURES = {
                               _I, _I, _F, _F, _I, _P],
     "hasco_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _LLP, _I, _I, _F, _F, _P],
-    "hasco_rwkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LLP,
-                    _I, _P],
+    "hasco_rwkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _LLP, _I, _I, _P],
     "hasco_mamba2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _LLP, _I, _I, _I, _P],
 }

@@ -5,7 +5,10 @@ of the ``rwkv6`` and ``mamba2`` kernels (``csrc/rwkv6.cu``,
 Port of ``repro/kernels/xla_linear.py``: the chunked math of the Pallas
 kernels (formulas in ``kernels/rwkv6.py`` and ``kernels/mamba2.py``),
 vectorised over (batch, heads), with a Python loop over chunks.  Float32
-inside; every exponent is <= 0.
+inside (float64 for float64 inputs: ``torch.promote_types(dtype,
+float32)``, so float32 and bfloat16 inputs compute as in float32, and a
+float64 run gives the readings that error is judged against); every
+exponent is <= 0.
 
 Unlike the reference, which asserts ``T % chunk == 0`` (its chunks are
 min(32, T) and min(128, T), so a 40-token rwkv6 prompt raises), these take
@@ -33,16 +36,18 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked WKV6.  r/k/w: (B, T, H, Dk), w the log-decay (<= 0); v: (B,
     T, H, Dv); u: (H, Dk); state: (B, H, Dk, Dv) or None.  Returns (out
-    (B, T, H, Dv) in v's dtype, final state (B, H, Dk, Dv) in float32)."""
+    (B, T, H, Dv) in v's dtype, final state (B, H, Dk, Dv) in float32, or
+    both in float64 for float64 inputs)."""
     b, t, h, dk = k.shape
     dv = v.shape[-1]
+    ct = torch.promote_types(v.dtype, torch.float32)
     chunk = min(chunk, t)
     n = -(-t // chunk)
     pad = n * chunk - t
-    rf, kf, vf, wf = (_pad_time(x.float(), pad) for x in (r, k, v, w))
-    s = (torch.zeros((b, h, dk, dv), device=v.device) if state is None
-         else state.float())
-    uf = u.float()
+    rf, kf, vf, wf = (_pad_time(x.to(ct), pad) for x in (r, k, v, w))
+    s = (torch.zeros((b, h, dk, dv), dtype=ct, device=v.device)
+         if state is None else state.to(ct))
+    uf = u.to(ct)
     strict = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=v.device).tril(-1)[None, :, :, None, None]
     outs = []
@@ -73,15 +78,16 @@ def mamba2(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """Chunked SSD.  x: (B, T, H, P); a: (B, T, H) log-decay (<= 0); b/c:
     (B, T, H, N), possibly stride 0 over H; state: (B, H, N, P) or None.
     Returns (y (B, T, H, P) in x's dtype, final state (B, H, N, P) in
-    float32)."""
+    float32, or both in float64 for float64 inputs)."""
     bs, t, h, p = x.shape
     n = b.shape[-1]
+    ct = torch.promote_types(x.dtype, torch.float32)
     chunk = min(chunk, t)
     nc = -(-t // chunk)
     pad = nc * chunk - t
-    xf, af, bf, cf = (_pad_time(z.float(), pad) for z in (x, a, b, c))
-    s = (torch.zeros((bs, h, n, p), device=x.device) if state is None
-         else state.float())
+    xf, af, bf, cf = (_pad_time(z.to(ct), pad) for z in (x, a, b, c))
+    s = (torch.zeros((bs, h, n, p), dtype=ct, device=x.device)
+         if state is None else state.to(ct))
     incl = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()[None, :, :, None]
     ys = []

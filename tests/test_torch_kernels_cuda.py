@@ -573,3 +573,70 @@ def test_dot_and_mamba2_replay_from_a_cuda_graph(cuda):
     for got, want in zip(outs, eager):
         assert torch.equal(got, want)          # the same bits, replayed
 
+
+def _rwkv6_t_for_span(span_chunks, h, sms):
+    """The least T (in whole and ragged chunks) at which the rwkv6 plan
+    picks spans of ``span_chunks`` chunks for ``h`` heads on this card."""
+    from repro_torch.kernels.rwkv6 import plan
+    for t in range(1, 16 * 1024, 7):
+        if plan(1, t, h, 64, 64, True, sms).span_chunks == span_chunks:
+            return t
+    raise AssertionError(f"no T gives spans of {span_chunks} chunks")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("span_chunks", [1, 2, 4, 8, 16])
+def test_rwkv6_kernel_matches_plain_at_every_span(cuda, dtype, span_chunks):
+    """T chosen so that the plan picks each span length it can: the three
+    passes (span states, state passing, outputs) against the plain version,
+    with a state and weak decay (the state passed between spans dominates),
+    and the same bits twice."""
+    from repro_torch.kernels.rwkv6 import plan
+    h = 12
+    sms = cuda_lib.sm_count(cuda.index)
+    t = _rwkv6_t_for_span(span_chunks, h, sms)
+    assert plan(1, t, h, 64, 64, dtype == "bfloat16",
+                sms).span_chunks == span_chunks
+    ins = _rwkv6_inputs(cuda, 1, t, h, 64, 64, "weak", True, DTYPES[dtype])
+    _check_recurrence(rwkv6, xla_linear.rwkv6, ins, dtype)
+    first, again = rwkv6(*ins), rwkv6(*ins)
+    for got, want in zip(first, again):
+        assert torch.equal(got, want)          # deterministic: no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rwkv6_gives_the_same_bits_twice_and_replays_from_a_graph(cuda,
+                                                                  dtype):
+    ins = _rwkv6_inputs(cuda, 1, 1000, 8, 64, 64, "wide", True,
+                        DTYPES[dtype])
+    eager = rwkv6(*ins)
+    for got, want in zip(rwkv6(*ins), eager):
+        assert torch.equal(got, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rwkv6(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = rwkv6(*ins)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)          # the same bits, replayed
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [
+    # (B, T, H, Dk, Dv, decay, state): many spans; Dv over two column
+    # blocks; Dk between 64 and 128 and Dv not a multiple of 64
+    (1, 4096, 4, 64, 64, "weak", True),
+    (1, 300, 2, 64, 128, "strong", True),
+    (2, 200, 3, 96, 80, "weak", False),
+])
+def test_rwkv6_kernel_matches_plain_over_spans_and_column_blocks(cuda, dtype,
+                                                                 case):
+    ins = _rwkv6_inputs(cuda, *case, DTYPES[dtype])
+    _check_recurrence(rwkv6, xla_linear.rwkv6, ins, dtype)
