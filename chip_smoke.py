@@ -60,7 +60,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      and its own SIMT route on the same inputs;
  10. the rwkv6 and mamba2 kernels against their plain versions on the
      card, float32 and bfloat16, with and without a state: the forwards'
-     shapes, ragged T (1, a chunk -1 and +1, 1000), Dk != Dv and N != P, b/c
+     shapes, mamba2 at phase 17's prefill chunks (T 64 and 61 at zamba2's
+     80 heads, a state carried in), ragged T (1, a chunk -1 and +1, 1000),
+     Dk != Dv and N != P, b/c
      as stride-0 views, strong and weak decay (the carried state dominant),
      and streaming (two chained half calls equal one whole call); mamba2
      with b/c as stride-0 views (the Gram made once a chunk for every head)
@@ -87,7 +89,32 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      and replayed from a CUDA graph; each with its plan, its device time
      by kernel (torch.profiler: span states, state passing, outputs), and
      the bytes of its span states with the floor they would set at the HBM
-     rate (derived, not measured).
+     rate (derived, not measured);
+ 16. the README's two commands on the port: ``python -m
+     repro_torch.launch.serve --arch qwen3-8b --smoke --tuned-app gemm_conv
+     --tuning-db <phase 4's DB>`` must print the blocks phase 4 committed
+     and serve; ``examples/quickstart_torch.py`` runs the gemm kernel with
+     the co-designed blocks within TOL["gemm"] of its plain version;
+ 17. zamba2-2.7b served by the PagedServeEngine at full width and depth
+     (phase 8's requests; pages of 16 rows, prefill chunks of 64 tokens),
+     traced: every request ends OK, the mamba2 launches of that run alone
+     are the Mamba layers times the prefill chunks of more than one token,
+     each request's first token is the argmax of its own prefill re-run
+     batch-1 in the engine's chunks, every kernel call of that re-run
+     within its tolerance of the plain version on the same inputs, whose
+     logits agree with the kernel forward's at LIMITS' ``chunks`` (each
+     request's reading printed beside the plain versions'), and
+     ``python -m repro_torch.obs`` validates the run's telemetry export;
+     then again with the kv sanitizer on every tick and a pool small
+     enough to preempt: at least one preemption, and every request's
+     tokens equal the first run's (the no-recompute swap guarantee);
+ 18. one MoE layer at granite-moe-3b-a800m's widths in float32 with
+     capacity factor 1.0 (tokens dropped) on the card against the same
+     layer on the CPU: the same routing (expert, slot, keep) and outputs
+     within MOE_TOL; then granite-moe-3b-a800m served paged as phase 17's
+     first run, each first token held to its batch-1 chunked prefill.
+     Phases 17 and 18 print tokens/s, TTFT p50/p95, decode-step ms,
+     prefill chunks and preemptions for each run.
 
 Each model is freed before the next one is drawn.
 
@@ -98,8 +125,11 @@ or no checkout around it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -195,13 +225,22 @@ SERVE = dict(slots=4, max_seq=2048, n=8, prompt=(128, 1024), max_new=16)
 #   prefill: each served request's prefill logits against the kernel
 #     forward's at its last prompt position, least cosine;
 #   halves: a recurrent prompt prefilled in two halves (the state carried
-#     through decode_step) against prefilled whole, cosine.
+#     through decode_step) against prefilled whole, cosine;
+#   chunks: the paged engine's prefill re-run batch-1 in its chunks of 64
+#     (up to 15 pieces) against the kernel forward at the last position,
+#     least cosine over the requests; bfloat16, so it reads the model's own
+#     sensitivity to where the prompt is cut: per request the plain
+#     versions cut alike read 0.990120-0.998573 against the plain forward,
+#     the kernels 0.989042-0.998707, both least at one request (the smoke
+#     prints both each run); in float32 both read 0.9999999, so the float32
+#     reading is held at forward_f32.  The kernels on that path are held
+#     per call, each against its plain version on the same inputs.
 LIMITS = {
     "qwen3-8b": dict(forward=(0.999, 0.9), prefill=0.999),
     "rwkv6-3b": dict(forward=(0.45, 0.6), forward_f32=0.98, prefill=0.999,
                      halves=0.98),
     "zamba2-2.7b": dict(forward=(0.99, 0.85), forward_f32=0.99999,
-                        prefill=0.998, halves=0.998),
+                        prefill=0.998, halves=0.998, chunks=0.985),
 }
 
 # rwkv6 / mamba2 (rtol, atol) against their plain chunked versions:
@@ -210,6 +249,17 @@ LIMITS = {
 # atol for outputs near 0; the float32 final states at 1e-4 in both
 LIN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
 STATE_TOL = (1e-4, 1e-4)
+# the paged engine (phases 17, 18): page and prefill-chunk sizes, and the
+# page-pressure run's pool.  The dense-equivalent pool is 512 pages (4
+# slots x 2048 rows / 16); at half of it (256) these eight requests' rows
+# fit at every step and nothing is preempted, at 200 pages one request is
+# (the same lengths served on the CPU by a reduced model)
+PAGED = dict(page_size=16, prefill_chunk=64)
+PRESSURE_PAGES = 200
+# one MoE layer on the card against the CPU, float32 (rtol, atol x the
+# largest output): both sum the d 1536 and f 512 products in other orders,
+# ~sqrt(K) float32 ulps apart
+MOE_TOL = (1e-4, 1e-5)
 LIN_META = {
     "rwkv6": ("src/repro_torch/csrc/rwkv6.cu", "src/repro/kernels/rwkv6.py:95"),
     "mamba2": ("src/repro_torch/csrc/mamba2.cu",
@@ -386,6 +436,21 @@ def main() -> int:
         passes = row["passes_ms"] or "not measured (no device time)"
         print(f"    device time a call by kernel (torch.profiler): {passes}")
         rows.append(row)
+    phase("16. the README's two commands on the port, and the quickstart")
+    run_two_commands(torch)
+
+    phase("17. paged serving: the PagedServeEngine on zamba2-2.7b")
+    paged = run_paged(torch, "zamba2-2.7b", pressure=True)
+    mamba_row = next(r_ for r_ in rows if r_["name"] == "mamba2")
+    mamba_row["paged_launches"] = paged["mamba2"]
+    torch.cuda.empty_cache()
+
+    phase("18. MoE: one layer on the card against the CPU, then "
+          "granite-moe-3b-a800m served paged")
+    check_moe(torch)
+    run_paged(torch, "granite-moe-3b-a800m")
+    torch.cuda.empty_cache()
+
     flash_row = next(r_ for r_ in rows if r_["name"] == "flash_attention")
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
     require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
@@ -1206,6 +1271,262 @@ def run_serving(torch, model) -> None:
                     "prefilling in two halves drifts from prefilling whole")
 
 
+# -- the README's two commands, the quickstart ------------------------------
+
+def run_two_commands(torch) -> None:
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    ops.reset_dispatch()
+    committed = ops.configure(app="gemm_conv", db_path=DB_PATH)
+    ops.reset_dispatch()
+    require(bool(committed), f"{DB_PATH} holds no gemm_conv app")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def run(cmd):
+        print("$ " + " ".join(cmd[1:]), flush=True)
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        for line in res.stdout.splitlines()[-4:]:
+            print("  " + line)
+        require(res.returncode == 0, f"exited {res.returncode}: "
+                f"{res.stderr[-2000:]}")
+        return res.stdout
+
+    out = run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "qwen3-8b", "--smoke", "--tuned-app", "gemm_conv",
+               "--tuning-db", str(DB_PATH)])
+    line = f"tuned kernel blocks installed: gemm={committed['gemm']}"
+    require(line in out.splitlines(), f"serve did not print {line!r}")
+    require("status: OK=6" in out, "the tuned serve did not end OK")
+    print(f"  serve installed phase 4's blocks: {committed}")
+
+    out = run([sys.executable, "examples/quickstart_torch.py"])
+    m = re.search(r"max abs err vs the plain version (\S+)$", out, re.M)
+    require(m is not None, "the quickstart printed no error")
+    err = float(m.group(1))
+    # the quickstart's operands (seeds 0 and 1): its tolerance at the
+    # largest output
+    a = np.random.default_rng(0).standard_normal((128, 96))
+    b = np.random.default_rng(1).standard_normal((96, 64))
+    rtol, atol = TOL["gemm"]["float32"]
+    limit = atol + rtol * float(np.abs(a @ b).max())
+    require(err <= limit, f"the quickstart's gemm err {err} > {limit}")
+    print(f"  quickstart gemm max abs err {err:.3g} within {limit:.3g}")
+
+
+# -- paged serving and MoE ----------------------------------------------------
+
+def run_paged(torch, arch: str, pressure: bool = False) -> dict[str, int]:
+    """Phase 17 (zamba2-2.7b: the ample run, then with ``pressure`` the
+    page-pressure run) or phase 18's serving (granite-moe-3b-a800m: the
+    ample run); returns the ample run's kernel launches."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import plain
+    from repro_torch.launch.serve import Request, serve_requests
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import family_module
+    from repro_torch.models.tree import leaves, tree_map
+
+    cfg = get_config(arch)
+    mod = family_module(cfg)
+    t0 = time.perf_counter()
+    params = mod.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE["prompt"]
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1)))
+               for _ in range(SERVE["n"])]
+    chunk = PAGED["prefill_chunk"]
+    dense_pages = SERVE["slots"] * -(-SERVE["max_seq"] // PAGED["page_size"])
+    telemetry = DB_PATH.parent / f"telemetry_{arch}.json"
+
+    def serve(n_pages, sanitize):
+        reqs = [Request(i, p, SERVE["max_new"]) for i, p in
+                enumerate(prompts)]
+        _read_launches(reset=True)
+        st = obs.enable()
+        t0 = time.perf_counter()
+        done, stats = serve_requests(
+            cfg, params, reqs, slots=SERVE["slots"],
+            max_seq=SERVE["max_seq"], impl="cuda", paged=True,
+            n_pages=n_pages, sanitize=sanitize, **PAGED)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _read_launches()
+        spans = {}
+        for ev in st.tracer.events():
+            if ev[0] == "X":
+                n, sec = spans.get(ev[1], (0, 0.0))
+                spans[ev[1]] = (n + 1, sec + ev[3] / 1e6)
+        chunks = int(st.metrics.counter("serve.prefill_chunks").value)
+        if not sanitize:
+            obs.export_telemetry(telemetry)
+        obs.disable()
+        require([r.status for r in done] == ["OK"] * SERVE["n"],
+                f"statuses {stats['status_counts']}")
+        require(all(len(r.out) == SERVE["max_new"] for r in done),
+                "a request ended short of max_new")
+        pre, dec = spans["serve.prefill_chunk"], spans["serve.decode_step"]
+        require(pre[0] == chunks, f"{pre[0]} chunk spans, {chunks} counted")
+        ttft = stats["ttft_s"]
+        print(f"pool {n_pages or dense_pages} pages of "
+              f"{PAGED['page_size']} rows{', sanitized' if sanitize else ''}"
+              f": {SERVE['n']} requests, {stats['generated']} tokens in "
+              f"{dt:.3f} s: {stats['generated'] / dt:.2f} tokens/s; TTFT "
+              f"p50 {ttft['p50']:.3f} s, p95 {ttft['p95']:.3f} s; "
+              f"{stats['decode_steps']} decode steps, "
+              f"{dec[1] / dec[0] * 1e3:.1f} ms each; {chunks} prefill "
+              f"chunks, {pre[1] / pre[0] * 1e3:.1f} ms each; "
+              f"{stats['preemptions']} preemptions; launches {launches}")
+        return {r.rid: list(r.out) for r in done}, stats, launches, chunks
+
+    out, stats, launches, chunks = serve(None, False)
+    # no preemption in the ample pool: each prompt is prefilled once, in
+    # ceil(n / chunk) chunks; a chunk of one token takes the decode step's
+    # one-token path, which launches no kernel
+    sizes = [min(chunk, len(p) - s) for p in prompts
+             for s in range(0, len(p), chunk)]
+    require(stats["preemptions"] == 0, "the ample pool preempted")
+    require(chunks == len(sizes), f"{chunks} chunks, not {len(sizes)}")
+    multi = sum(n > 1 for n in sizes)
+    want = {k: n * multi for k, n in _launches(cfg, "prefill").items()}
+    require(launches == want, f"paged serving launched {launches}, not "
+            f"{want} ({multi} chunks of more than one token; decode steps "
+            f"launch no kernel)")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.obs",
+                          str(telemetry)], cwd=ROOT, capture_output=True,
+                         text=True, env={**os.environ,
+                                         "PYTHONPATH": str(SRC)})
+    print("  " + (res.stdout.strip() or res.stderr.strip()))
+    require(res.returncode == 0, "the telemetry export does not validate")
+    doc = json.loads(telemetry.read_text())
+    names = {ev["name"] for ev in doc["trace"]["events"]}
+    require({"serve.prefill_chunk", "serve.decode_step"} <= names
+            and "serve.prefill_chunks" in doc["metrics"]["counters"]
+            and "serve.decode_batch" in doc["metrics"]["histograms"],
+            "the export lacks the reference's span or metric names")
+
+    # each first token against its own prefill, re-run batch-1 in the
+    # engine's chunks, every kernel call of it held against its plain
+    # version on the same inputs; and (zamba2) those logits against the
+    # forward's, the kernels' beside the plain versions', and in float32
+    lim = LIMITS.get(arch, {})
+
+    def chunked(prm, p, impl):
+        cache = mod.init_prefill_cache(cfg, 1, len(p), device="cuda",
+                                       dtype=prm["embed"]["table"].dtype)
+        for s in range(0, len(p), chunk):
+            toks = torch.as_tensor(p[None, s:s + chunk], dtype=torch.int64,
+                                   device="cuda")
+            lp, cache = mod.decode_step(prm, cfg, cache, toks, [s],
+                                        impl=impl)
+        return lp[0, -1]
+
+    def vs_forward(prm, impl):
+        """Least cosine and argmax agreements of the chunked prefill
+        against the full-sequence forward, both on ``impl``."""
+        fwd = make_prefill_step(cfg, impl=impl)
+        cos, agree = [], 0
+        for p in prompts:
+            lf = fwd(prm, {"tokens": torch.as_tensor(
+                p[None], dtype=torch.int64, device="cuda")})
+            cmp = _compare_logits(torch, chunked(prm, p, impl), lf[0, -1])
+            cos.append(cmp["min_cosine"])
+            agree += int(cmp["argmax_agree"])
+        return cos, agree
+
+    checked = _CheckedOps(torch)
+    with torch.no_grad():
+        for rid, p in enumerate(prompts):
+            require(int(torch.argmax(chunked(params, p, checked)))
+                    == out[rid][0], f"request {rid}: the engine's first "
+                    f"token is not the argmax of its chunked prefill")
+        print("  every first token is the argmax of its batch-1 chunked "
+              "prefill")
+        calls = {k: n for k, n in want.items() if n}
+        require({k: n for k, (n, _) in checked.worst.items()} == calls,
+                f"the chunked prefill made {checked.worst}, not {calls} "
+                f"checked kernel calls")
+        for name, (n, err) in sorted(checked.worst.items()):
+            print(f"  {name}: {n} calls on the prefill chunks' own inputs "
+                  f"(state carried in), each within its {cfg.dtype} "
+                  f"tolerance of the plain version (max abs err {err:.3g}; "
+                  f"at most {checked.flips[name]:.3g} of a call's outputs "
+                  f"rounded otherwise)")
+        if "chunks" in lim:
+            kcos, kagree = vs_forward(params, "cuda")
+            pcos, pagree = vs_forward(params, plain)
+            p32 = tree_map(lambda t: t.float(), params)
+            fcos, fagree = vs_forward(p32, "cuda")
+            del p32
+            print(f"  chunked prefill vs the forward at the last position, "
+                  f"cosine per request (same argmax): kernels "
+                  f"{' '.join(f'{c:.6f}' for c in kcos)} ({kagree} of "
+                  f"{len(prompts)}); the plain versions alike "
+                  f"{' '.join(f'{c:.6f}' for c in pcos)} ({pagree}); "
+                  f"float32 weights, kernels "
+                  f"{' '.join(f'{c:.7f}' for c in fcos)} ({fagree})")
+            kcos, fcos = min(kcos), min(fcos)
+            require(kcos >= lim["chunks"], "the chunked prefill drifts from "
+                    "the kernel forward")
+            require(fcos >= lim["forward_f32"], "the float32 chunked "
+                    "prefill drifts from the kernel forward")
+    if pressure:
+        # the page-pressure run: same tokens, through swap-out/swap-in
+        tight, tstats, _, _ = serve(PRESSURE_PAGES, True)
+        require(tstats["preemptions"] >= 1,
+                f"{PRESSURE_PAGES} pages never preempted")
+        require(tight == out, "preemption changed a request's tokens")
+        print(f"  the page-pressure run's tokens equal the ample run's "
+              f"({tstats['preemptions']} preemptions, sanitizer on)")
+    del params
+    return launches
+
+
+def check_moe(torch) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              capacity_factor=1.0, dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    cpu = L.moe_init(gen, cfg, 1, torch.float32, "cpu")
+    card = {k: v.cuda() for k, v in cpu.items()}
+    rtol, atol = MOE_TOL
+    for shape in ((1, 64), (4, 1), (1, 1024)):
+        x = torch.randn(*shape, cfg.d_model, generator=gen)
+        s = shape[1]
+        cap = max(8, math.ceil(s * cfg.top_k / cfg.n_experts
+                               * cfg.capacity_factor))
+        route = [L._dispatch_group(
+            xx, xx @ p["router"] + p["router_mask"], cfg.top_k, cap)[1:4]
+            for xx, p in ((x, cpu), (x.cuda(), card))]
+        for name, a, b in zip(("expert", "slot", "keep"), *route):
+            require(torch.equal(a, b.cpu()), f"MoE {shape}: the card's "
+                    f"{name} differs from the CPU's")
+        with torch.no_grad():
+            want = L.moe(cpu, cfg, x)
+            got = L.moe(card, cfg, x.cuda()).cpu()
+        scale = float(want.abs().max())
+        err = _close(torch, got, want, rtol, atol * scale)
+        dropped = int((route[0][2] == 0).sum())
+        print(f"  moe (B, S) {shape}, d {cfg.d_model}, {cfg.n_experts} "
+              f"experts, top-{cfg.top_k}, capacity {cap}: {dropped} of "
+              f"{shape[0] * s * cfg.top_k} (token, expert) pairs dropped, "
+              f"the same routing on both; max abs err {err:.3g} (max "
+              f"|out| {scale:.3g}) within rtol {rtol}, atol {atol} x max")
+
+
 # the forwards' attention shapes (B, S, H, Hkv, D), causal, bfloat16
 FLASH_SHAPES = {"qwen3-8b": (1, FWD_TOKENS, 32, 8, 128),
                 "zamba2-2.7b": (1, FWD_TOKENS, 32, 32, 80)}
@@ -1375,6 +1696,10 @@ def check_recurrences(torch) -> None:
         (1, 1000, 4, 64, 64, "weak", True, True),
         (2, 100, 3, 48, 24, "strong", False, False),
         (1, 70, 2, 16, 128, "weak", True, True),
+        # the paged engine's prefill chunks of zamba2-2.7b (phase 17): 64
+        # tokens and a tail, the state carried in from the last chunk
+        (1, 64, 80, 64, 64, "weak", True, True),
+        (1, 61, 80, 64, 64, "strong", True, True),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).removeprefix("torch.")

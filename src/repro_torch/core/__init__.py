@@ -1,5 +1,5 @@
 """HASCO core: TST IR, two-step tensorize matching, HW/SW design spaces,
-cost model, MOBO hardware DSE, heuristic + Q-learning (PyTorch DQN) software
+cost model, MOBO / NSGA-II / random hardware DSE, heuristic + Q-learning (PyTorch DQN) software
 DSE, and the co-design driver (paper Fig. 3)."""
 
 from .codesign import Constraints, Solution, codesign, separate_design
@@ -10,6 +10,8 @@ from .hw_space import HWSpace
 from .intrinsics import ALL_INTRINSICS
 from .matching import TensorizeChoice, match, partition_space
 from .mobo import mobo
+from .nsga2 import nsga2
+from .random_search import random_search
 from .sw_dse import SearchSpec, SWResult, run_searches
 from .sw_primitives import Schedule
 from .tst import TensorExpr, parse
@@ -18,6 +20,7 @@ __all__ = [
     "ALL_INTRINSICS", "Constraints", "CostReport", "EvalCache", "HWBuilder",
     "HWConfig", "HWSpace", "SWResult", "Schedule", "SearchSpec", "Solution",
     "TensorExpr", "TensorizeChoice", "codesign", "evaluate",
-    "evaluate_batch", "evaluate_batch_reports", "match", "mobo", "parse",
-    "partition_space", "run_searches", "separate_design",
+    "evaluate_batch", "evaluate_batch_reports", "match", "mobo", "nsga2",
+    "parse", "partition_space", "random_search", "run_searches",
+    "separate_design",
 ]

@@ -1,6 +1,6 @@
-"""Continuous-batching serving engine (DESIGN.md §11), in PyTorch.
+"""Continuous-batching serving engines (DESIGN.md §11, §12), in PyTorch.
 
-Port of the dense engine of ``repro/launch/serve.py``.  Requests arrive
+Port of ``repro/launch/serve.py``.  Requests arrive
 with prompts of different lengths; an FCFS scheduler packs them into a fixed
 number of decode *slots*.  Admission runs one prefill over the whole prompt
 (a single causal forward whose K/V are scattered into that slot alone) and
@@ -15,13 +15,20 @@ so a retired tenant's leftovers can never leak into the next request.  A
 slot that is idle still takes part in the batched decode step: its writes
 land past the cache (``pos == max_seq``) and are dropped.
 
-Not ported yet (ROADMAP A.5): the paged engine (``--paged``), the KV
-sanitizer (``--sanitize``) and tensor-parallel serving (``--mesh``); each
+The paged engine (:class:`PagedServeEngine`, DESIGN.md §12) keeps the same
+per-slot position contract but virtualizes the KV rows themselves: full-length
+attention KV lives in one physical pool of fixed-size pages, a per-slot page
+table (``row_map``) supplies the slot -> row indirection, admission is gated on
+free *pages* rather than free slots, prefill is chunked and interleaved with
+decode, and low-priority requests are preempted (swapped out to host memory,
+bit-exactly) under page pressure.
+
+Not ported yet (ROADMAP A.8): tensor-parallel serving (``--mesh``); it
 raises rather than being ignored.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
-      --smoke --device cpu
+      --smoke --device cpu [--paged --page-size 8 --pages 24 --sanitize]
 """
 from __future__ import annotations
 
@@ -34,10 +41,14 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.analysis.kv_sanitizer import assert_engine
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.ft import ProgressWatchdog, inject
+from repro_torch.ft.inject import InjectedFault
+from repro_torch.launch.paging import PageAllocator, PriorityScheduler
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import family_module, reduced
+from repro_torch.models.tree import leaves, tree_map
 
 #: Terminal request statuses (DESIGN.md §14).  Every submitted request ends
 #: in exactly one of these; ``PENDING`` is the only non-terminal state.
@@ -45,8 +56,6 @@ TERMINAL_STATUSES = ("OK", "CANCELLED", "EXPIRED", "REJECTED", "FAILED")
 
 # flags of the reference's CLI whose code is not ported yet: they raise
 _DEFERRED_FLAGS = {
-    "paged": "the paged engine is not ported yet (ROADMAP A.5)",
-    "sanitize": "the KV sanitizer is not ported yet (ROADMAP A.5)",
     "mesh": "tensor-parallel serving is not ported yet (ROADMAP A.8)",
 }
 
@@ -80,6 +89,8 @@ class Request:
     deadline_s: float | None = None    # relative deadline, stamped at submit
     next_token: int = -1
     out: list[int] = dataclasses.field(default_factory=list)
+    submit_seq: int = -1           # stamped by the scheduler at submit
+    preemptions: int = 0
     status: str = "PENDING"
     deadline_at: float | None = None   # absolute, on the engine's clock
     submit_time: float | None = None
@@ -125,12 +136,17 @@ def _obs_submit(req: Request) -> None:
         st.metrics.counter("serve.submitted").inc()
 
 
-def _obs_admit(req: Request, slot: int) -> None:
-    req.admit_time = time.time()
+def _obs_admit(req: Request, slot: int, resumed: bool = False) -> None:
+    first = req.admit_time is None
+    if first:
+        req.admit_time = time.time()
     st = obs.state()
     if st is not None:
-        st.tracer.instant("req.admit", {"rid": req.rid, "slot": slot})
-        if req.submit_time is not None:
+        st.tracer.instant("req.resume" if resumed else "req.admit",
+                          {"rid": req.rid, "slot": slot})
+        if resumed:
+            st.metrics.counter("serve.resumes").inc()
+        if first and req.submit_time is not None:
             st.metrics.histogram("serve.queue_wait_s").observe(
                 req.admit_time - req.submit_time)
 
@@ -245,15 +261,18 @@ class FCFSScheduler:
         return req
 
 
-def _write_slot(cache, slot_cache, slot: int, axes) -> None:
+def _write_slot(cache, slot_cache, slot: int, axes, prows=None) -> None:
     """Copy a batch-1 packed prefill cache into slot ``slot`` of the shared
-    cache, in place (it replaces the slot's whole slice)."""
-    for name, c in cache.items():
-        if isinstance(c, dict):
-            _write_slot(c, slot_cache[name], slot, axes[name])
+    cache, in place: per-slot leaves replace the slot's whole slice (the
+    KV/state reset of DESIGN.md §11); pool leaves (axis ``"pool"``, the
+    paged cache) land at the slot's page-table rows ``prows``."""
+    def wr(c, pc, ax):
+        if ax == "pool":
+            c[:, prows] = pc.select(1, 0).to(c.dtype)
         else:
-            c.select(axes[name], slot).copy_(
-                slot_cache[name].select(axes[name], 0))
+            c.select(ax, slot).copy_(pc.select(ax, 0))
+
+    tree_map(wr, cache, slot_cache, axes)
 
 
 class ServeEngine:
@@ -441,6 +460,511 @@ class ServeEngine:
         return sorted(done, key=lambda r: r.rid)
 
 
+@dataclasses.dataclass
+class _Prefill:
+    """An in-flight chunked prefill: a private batch-1 full-length dense
+    cache advanced ``prefill_chunk`` tokens per engine step through the same
+    decode step (row_map=None -> dense path).  The cache covers the whole
+    prompt so every chunk's queries see their exact causal (and sliding-
+    window) context; KV only moves into the shared pool at commit."""
+    req: Request
+    cache: object
+    done: int = 0
+
+
+class PagedServeEngine:
+    """Paged continuous batching (DESIGN.md §12), on the device that holds
+    ``params``.
+
+    KV virtualization: full-length attention KV lives in one physical pool
+    of ``n_pages`` pages of ``page_size`` rows; ``row_map[slot, i]`` maps a
+    slot's logical row ``i`` to its physical pool row (−1 = unmapped).
+    Sliding-window rings and recurrent state stay per-slot (already O(1) in
+    request length).  Admission is gated on free pages, prefill is chunked
+    and interleaved with decode, and page pressure preempts the least
+    deserving active request: its pool rows and per-slot state are copied
+    out to host memory and restored bit-exactly on resume (no recompute,
+    so preemption can never change a request's output).
+    """
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_seq: int = 64,
+                 page_size: int = 8, n_pages: int | None = None,
+                 prefill_chunk: int = 16, tp: int = 1, impl: str = "cuda",
+                 max_concurrency: int | None = None, mesh=None,
+                 age_steps: int = 32,
+                 clock=time.monotonic, stall_limit: int = 256,
+                 sanitize: bool = False):
+        if cfg.embed_inputs:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode loop "
+                             f"(DESIGN.md §5)")
+        if mesh is not None:
+            raise NotImplementedError(_DEFERRED_FLAGS["mesh"])
+        self.cfg, self.params = cfg, params
+        self.mod = family_module(cfg)
+        self.device = params["embed"]["table"].device
+        self.n_slots, self.max_seq = slots, max_seq
+        self.prefill_chunk = max(1, prefill_chunk)
+        self._tp = tp
+        if n_pages is None:   # default: same KV capacity as the dense engine
+            n_pages = -(-max_seq // page_size) * slots
+        self.alloc = PageAllocator(n_pages, page_size)
+        self.scheduler = PriorityScheduler(slots, max_concurrency, age_steps)
+        # chunked prefill and batched decode run the same decode step: on a
+        # private dense cache (no row_map) and on the paged cache
+        self._decode = make_decode_step(cfg, tp=tp, impl=impl)
+        self._axes = self.mod.paged_slot_axes(cfg)
+        self._has_pool = "pool" in leaves(self._axes)
+        self.cache = self.mod.init_paged_cache(
+            cfg, slots, n_pages * page_size, max_seq, tp, device=self.device)
+        self.row_map = np.full((slots, max_seq), -1, np.int32)
+        # pos sentinel max_seq: an idle/prefilling slot's decode-batch lane
+        # writes past the page table, onto the pool's scratch row
+        self.pos = np.full(slots, max_seq, np.int64)
+        self._pages: list[list[int]] = [[] for _ in range(slots)]
+        self._prefills: dict[int, _Prefill] = {}
+        self._suspended: dict[int, tuple[int, object]] = {}   # rid -> swap
+        self.clock = clock
+        self.stall_limit = stall_limit
+        # debug mode: re-check the page-table/allocator invariants after
+        # every tick (analysis.kv_sanitizer; raises PagedStateError)
+        self.sanitize = sanitize
+        self.terminal: list[Request] = []   # degraded terminals, undrained
+        self.decode_steps = 0
+        self.prefill_tokens = 0
+        self.generated = 0
+        self.preemptions = 0
+
+    # -- request intake ----------------------------------------------------
+
+    def _budget(self, req: Request) -> int:
+        return min(self.max_seq, req.max_seq or self.max_seq)
+
+    def submit(self, req: Request) -> bool:
+        """Queue ``req``; False when it can never be served (status becomes
+        REJECTED and it is reported through ``run()`` like any terminal)."""
+        _obs_submit(req)
+        if len(req.prompt) >= self._budget(req):
+            self._finish_terminal(req, "REJECTED", f"prompt "
+                                  f"({len(req.prompt)} tokens) must leave "
+                                  f"room under its context budget "
+                                  f"{self._budget(req)}")
+            return False
+        if self._has_pool:
+            # a request admitted alone must always fit: its peak row count
+            # is bounded by both its budget and prompt + max_new - 1
+            peak = min(len(req.prompt) + req.max_new - 1, self._budget(req))
+            if self.alloc.pages_for(peak) > self.alloc.n_pages:
+                self._finish_terminal(
+                    req, "REJECTED",
+                    f"needs {self.alloc.pages_for(peak)} pages at peak, "
+                    f"pool only has {self.alloc.n_pages}")
+                return False
+        if req.deadline_s is not None:
+            req.deadline_at = self.clock() + req.deadline_s
+        self.scheduler.submit(req)
+        return True
+
+    # -- graceful degradation (DESIGN.md §14) ------------------------------
+
+    def _finish_terminal(self, req: Request, status: str,
+                         detail: str = "") -> None:
+        _obs_degrade(req, status, detail)
+        self.terminal.append(req)
+
+    def _drop_slot(self, slot: int) -> Request:
+        """Tear down an active slot without completing its request: the
+        in-flight prefill (if any) is discarded and every page returns to
+        the pool."""
+        req = self.scheduler.retire(slot)
+        self._prefills.pop(slot, None)
+        self._release(slot)
+        return req
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a waiting, suspended, or active request; False if ``rid``
+        is unknown or already terminal.  Pages free immediately."""
+        for req in self.scheduler.waiting():
+            if req.rid == rid:
+                self.scheduler.remove(req)
+                self._suspended.pop(rid, None)   # swapped-out snapshot
+                self._finish_terminal(req, "CANCELLED")
+                return True
+        for slot, req in list(self.scheduler.active.items()):
+            if req.rid == rid:
+                self._drop_slot(slot)
+                self._finish_terminal(req, "CANCELLED")
+                return True
+        return False
+
+    def _purge_expired(self) -> None:
+        """Drop every request past its deadline, waiting, suspended or
+        active, at the top of each step."""
+        now = self.clock()
+        for req in self.scheduler.waiting():
+            if req.deadline_at is not None and now >= req.deadline_at:
+                self.scheduler.remove(req)
+                self._suspended.pop(req.rid, None)
+                self._finish_terminal(req, "EXPIRED")
+        for slot, req in list(self.scheduler.active.items()):
+            if req.deadline_at is not None and now >= req.deadline_at:
+                self._drop_slot(slot)
+                self._finish_terminal(req, "EXPIRED")
+
+    # -- paging ------------------------------------------------------------
+
+    def _need_pages(self, req: Request) -> int:
+        """Free pages required to (re)start ``req`` and take one decode
+        step: prompt rows + 1 fresh, suspended rows + 1 on resume."""
+        if not self._has_pool:
+            return 0
+        rows = self._suspended[req.rid][0] if req.rid in self._suspended \
+            else len(req.prompt)
+        return self.alloc.pages_for(min(rows + 1, self._budget(req)))
+
+    def _release(self, slot: int) -> None:
+        if self._pages[slot]:
+            self.alloc.free(self._pages[slot])
+        self._pages[slot] = []
+        self.row_map[slot, :] = -1
+        self.pos[slot] = self.max_seq
+
+    def _map_pages(self, slot: int, pages: list[int]) -> None:
+        """Append ``pages`` to the slot's table, mapping their rows."""
+        ps = self.alloc.page_size
+        start = len(self._pages[slot]) * ps
+        self._pages[slot].extend(pages)
+        stop = min(len(self._pages[slot]) * ps, self.max_seq)
+        self.row_map[slot, start:stop] = np.asarray(
+            self.alloc.rows(self._pages[slot], stop)[start:], np.int32)
+
+    def _slot_rows(self, slot: int, n: int) -> torch.Tensor:
+        """The slot's first ``n`` physical pool rows, on the device."""
+        return torch.as_tensor(self.row_map[slot, :n].astype(np.int64),
+                               device=self.device)
+
+    def _reclaim(self, need: int, challenger: int) -> bool:
+        """Preempt strictly less deserving page-holding slots until ``need``
+        pages are free; False if no such victim remains."""
+        while self.alloc.n_free < need:
+            key = self.scheduler.admit_key(challenger)
+            cands = [(self.scheduler.admit_key(s), s)
+                     for s in list(self.scheduler.active)
+                     if s != challenger and self._pages[s]]
+            if not cands:
+                return False
+            vkey, victim = max(cands)
+            if vkey <= key:
+                return False
+            self._preempt(victim)
+        return True
+
+    def _grow(self, slot: int) -> bool:
+        """Ensure the slot's next write row is mapped, allocating (and under
+        pressure reclaiming) pages; False = the slot itself was preempted."""
+        if not self._has_pool:
+            return True
+        ps = self.alloc.page_size
+        while len(self._pages[slot]) * ps < self.pos[slot] + 1:
+            if self.alloc.n_free < 1 and not self._reclaim(1, slot):
+                self._preempt(slot)
+                return False
+            try:
+                pages = self.alloc.alloc(1)
+            except MemoryError:
+                # injected (or genuine) allocation failure degrades exactly
+                # like page pressure: swap out bit-exactly, retry later
+                self._preempt(slot)
+                return False
+            self._map_pages(slot, pages)
+        return True
+
+    # -- preemption: swap-out / swap-in (bit-exact, no recompute) ----------
+
+    def _preempt(self, slot: int) -> None:
+        req = self.scheduler.slots[slot]
+        if slot in self._prefills:
+            del self._prefills[slot]     # partial prefill restarts on resume
+        else:
+            self._swap_out(slot, req)
+        self._requeue(slot, req)
+
+    def _requeue(self, slot: int, req: Request) -> None:
+        """Free the slot and its pages and send its request back to the
+        waiting queue, counted as one preemption (engine and telemetry)."""
+        self._release(slot)
+        self.scheduler.preempt(slot)
+        self.preemptions += 1
+        st = obs.state()
+        if st is not None:
+            st.tracer.instant("req.preempt", {"rid": req.rid, "slot": slot})
+            st.metrics.counter("serve.preemptions").inc()
+
+    def _swap_out(self, slot: int, req: Request) -> None:
+        """Copy the slot's pool rows and per-slot state to host memory: a
+        copy, never a view, since the cache is written in place and the
+        next tenant of these pages and this slot overwrites them."""
+        rows = int(self.pos[slot])
+        prows = self._slot_rows(slot, rows)
+
+        def grab(c, ax):
+            part = c[:, prows] if ax == "pool" else c.select(ax, slot)
+            return part.to("cpu", copy=True)
+
+        self._suspended[req.rid] = (rows, tree_map(grab, self.cache,
+                                                   self._axes))
+
+    def _swap_in(self, slot: int, req: Request) -> None:
+        rows, snap = self._suspended[req.rid]
+        if self._has_pool:
+            # allocate BEFORE dropping the host snapshot: an (injected)
+            # MemoryError here leaves the suspension intact, so the caller
+            # can requeue the request without losing its state
+            self._map_pages(slot, self.alloc.alloc(
+                self.alloc.pages_for(rows)))
+        prows = self._slot_rows(slot, rows)
+        del self._suspended[req.rid]
+
+        def put(c, s, ax):
+            if ax == "pool":
+                c[:, prows] = s.to(c.device)
+            else:
+                c.select(ax, slot).copy_(s)
+
+        tree_map(put, self.cache, snap, self._axes)
+        self.pos[slot] = rows
+
+    # -- the serving loop --------------------------------------------------
+
+    def _start(self, slot: int, req: Request) -> None:
+        # preemptions > 0 without a swap snapshot means the request was
+        # preempted mid-prefill: the restart is still a resume of its
+        # lifecycle, not a fresh admission
+        _obs_admit(req, slot,
+                   resumed=req.rid in self._suspended or req.preemptions > 0)
+        if req.rid in self._suspended:
+            self._swap_in(slot, req)
+            return
+        self.pos[slot] = self.max_seq
+        self._prefills[slot] = _Prefill(req, self.mod.init_prefill_cache(
+            self.cfg, 1, len(req.prompt), self._tp, device=self.device))
+
+    def _admit_new(self) -> None:
+        """Admit waiting requests in (effective priority, submit) order,
+        gated on a free slot AND enough free pages; a strictly lower
+        effective-priority active request is preempted to make room."""
+        while True:
+            req = self.scheduler.peek()
+            if req is None:
+                return
+            if self.scheduler.free_slot() is not None \
+                    and self.alloc.n_free >= self._need_pages(req):
+                slot = self.scheduler.place(req)
+                try:
+                    self._start(slot, req)
+                except MemoryError:
+                    # injected page fault while re-admitting: undo the
+                    # placement and yield to the next step (retrying
+                    # inside this tick could livelock on a rate-based
+                    # fault schedule)
+                    self._prefills.pop(slot, None)
+                    self._requeue(slot, req)
+                    return
+                continue
+            victim = self.scheduler.least_deserving()
+            if victim is None or self.scheduler.admit_key(victim)[0] <= \
+                    self.scheduler.effective_priority(req):
+                return
+            self._preempt(victim)
+
+    def _prefill_tick(self, finished: list[Request]) -> None:
+        """Advance every in-flight prefill by one chunk; commit finished
+        ones into pool pages + slot state."""
+        for slot in sorted(self._prefills):
+            pf = self._prefills[slot]
+            req = pf.req
+            try:
+                inject.check("serve.prefill")
+            except InjectedFault as e:
+                # fail-stop for this request alone: the private prefill
+                # cache is discarded and the slot torn down, so by the
+                # per-slot position contract survivors are bit-identical
+                self._drop_slot(slot)
+                self._finish_terminal(req, "FAILED", str(e))
+                continue
+            chunk = min(self.prefill_chunk, len(req.prompt) - pf.done)
+            toks = torch.as_tensor(req.prompt[None, pf.done:pf.done + chunk],
+                                   dtype=torch.int64, device=self.device)
+            with obs.span("serve.prefill_chunk"):
+                logits, pf.cache = self._decode(self.params, pf.cache, toks,
+                                                [pf.done])
+            pf.done += chunk
+            self.prefill_tokens += chunk
+            st = obs.state()
+            if st is not None:
+                st.tracer.instant("req.prefill_chunk",
+                                  {"rid": req.rid, "done": pf.done,
+                                   "of": len(req.prompt)})
+                st.metrics.counter("serve.prefill_chunks").inc()
+            if pf.done < len(req.prompt):
+                continue
+            del self._prefills[slot]
+            self._commit(slot, req, pf.cache, logits, finished)
+
+    def _commit(self, slot: int, req: Request, pcache, logits,
+                finished: list[Request]) -> None:
+        """Prefill done: seed the first token, then move the prompt's KV
+        into freshly allocated pool pages + the slot's per-slot leaves.
+
+        Pages are secured BEFORE the first token is emitted: nothing is
+        committed yet, so a page-pressure failure here requeues the request
+        as a plain prefill restart (a swap-out would snapshot the idle
+        ``pos`` sentinel, and the first token would be emitted twice when
+        the prefill reruns).
+        """
+        n = len(req.prompt)
+        # max_new == 1 finishes at commit and never touches the pool
+        need = (self.alloc.pages_for(n)
+                if self._has_pool and req.max_new > 1 else 0)
+        pages: list[int] = []
+        if need:
+            ok = self.alloc.n_free >= need or self._reclaim(need, slot)
+            if ok:
+                try:
+                    pages = self.alloc.alloc(need)
+                except MemoryError:   # injected: degrade like pressure
+                    ok = False
+            if not ok:
+                self._requeue(slot, req)
+                return
+        tok = int(torch.argmax(logits[0, -1]))
+        req.next_token = tok
+        req.out.append(tok)
+        self.generated += 1
+        _obs_first_token(req)
+        if len(req.out) >= req.max_new:
+            _obs_finish(req)
+            finished.append(self.scheduler.retire(slot))
+            self.pos[slot] = self.max_seq
+            return
+        if pages:
+            self._map_pages(slot, pages)
+        packed = self.mod.pack_paged_slot(self.cfg, pcache, self.max_seq, n)
+        _write_slot(self.cache, packed, slot, self._axes,
+                    prows=self._slot_rows(slot, n if self._has_pool else 0))
+        self.pos[slot] = n
+
+    def _decode_tick(self, finished: list[Request]) -> None:
+        """One batched decode step over every committed slot, after mapping
+        (or reclaiming) the pages under each slot's next write row."""
+        # injection site FIRST: nothing is mutated yet, so step() can drop
+        # the whole tick as a transient and retry next step
+        inject.check("serve.decode")
+        order = sorted((s for s in self.scheduler.active
+                        if s not in self._prefills),
+                       key=self.scheduler.admit_key)
+        # _grow may preempt later slots as reclaim victims: skip them
+        decoding = [s for s in order
+                    if self.scheduler.slots[s] is not None and self._grow(s)]
+        if not decoding:
+            return
+        toks = np.zeros((self.n_slots, 1), np.int64)
+        pos = np.full(self.n_slots, self.max_seq, np.int64)
+        for s in decoding:
+            toks[s, 0] = self.scheduler.slots[s].next_token
+            pos[s] = self.pos[s]
+        with obs.span("serve.decode_step"):
+            logits, self.cache = self._decode(
+                self.params, self.cache,
+                torch.as_tensor(toks, device=self.device), pos,
+                row_map=self.row_map)
+        self.decode_steps += 1
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        for s in decoding:
+            req = self.scheduler.slots[s]
+            tok = int(nxt[s])
+            req.out.append(tok)
+            req.next_token = tok
+            self.pos[s] += 1
+            self.generated += 1
+            if len(req.out) >= req.max_new \
+                    or self.pos[s] >= self._budget(req):
+                _obs_finish(req)
+                finished.append(self.scheduler.retire(s))
+                self._release(s)
+        st = obs.state()
+        if st is not None:
+            st.metrics.histogram(
+                "serve.decode_batch",
+                obs.DEFAULT_COUNT_EDGES).observe(len(decoding))
+
+    @torch.no_grad()
+    def step(self) -> list[Request]:
+        """One engine tick: admissions, one prefill chunk per prefilling
+        slot, one batched decode step.  Returns requests finished now."""
+        self.scheduler.tick()
+        finished: list[Request] = []
+        with obs.span("serve.step"):
+            self._purge_expired()
+            with obs.span("serve.admit"):
+                self._admit_new()
+            with obs.span("serve.prefill_tick"):
+                self._prefill_tick(finished)
+            with obs.span("serve.decode_tick"):
+                try:
+                    self._decode_tick(finished)
+                except InjectedFault:
+                    # transient tick fault: the injection site is the
+                    # tick's first statement, so nothing was mutated; drop
+                    # the tick.  A persistent schedule turns into a stall,
+                    # which run()'s watchdog converts to fail-stop
+                    st = obs.state()
+                    if st is not None:
+                        st.metrics.counter("serve.tick_faults").inc()
+        st = obs.state()
+        if st is not None:
+            m = st.metrics
+            m.gauge("serve.pages_free").set(self.alloc.n_free)
+            m.gauge("serve.slots_active").set(self.scheduler.n_active)
+            m.gauge("serve.waiting").set(self.scheduler.n_waiting)
+        if self.sanitize and self._has_pool:
+            # a family with no pool leaf (rwkv6) maps no row, so its live
+            # slots would read as unmapped: there is nothing paged to check
+            assert_engine(self, site=f"tick{self.decode_steps}")
+        return finished
+
+    def run(self) -> list[Request]:
+        """Serve until queue and slots drain.  Returns every submitted
+        request in rid order, finished (status OK) and degraded terminals
+        alike.  A no-progress stall (a persistent fault schedule, or a
+        preemption livelock) raises :class:`EngineStalledError` instead of
+        looping forever."""
+        done: list[Request] = []
+        dog = ProgressWatchdog(self.stall_limit)
+        while self.scheduler.has_work():
+            done.extend(self.step())
+            # progress = tokens moved or a request reaching a terminal
+            # status; preemption counts are deliberately excluded (they
+            # keep incrementing during a livelock)
+            dog.beat((self.generated, self.prefill_tokens,
+                      len(done) + len(self.terminal)))
+            if dog.stalled:
+                raise EngineStalledError(
+                    f"no progress in {self.stall_limit} engine steps",
+                    diagnostics={
+                        "stall_limit": self.stall_limit,
+                        "waiting": [r.rid for r in self.scheduler.waiting()],
+                        "active": {s: r.rid for s, r in
+                                   self.scheduler.active.items()},
+                        "prefills": sorted(self._prefills),
+                        "suspended": sorted(self._suspended),
+                        "pages_free": self.alloc.n_free,
+                        "preemptions": self.preemptions,
+                    })
+        done.extend(self.terminal)
+        self.terminal = []
+        return sorted(done, key=lambda r: r.rid)
+
+
 def _latency_summary(done: list[Request]) -> dict:
     """Per-run latency summaries through the fixed-bucket histograms
     (DESIGN.md §13): ``ttft_s`` (submit → first token) and ``queue_wait_s``
@@ -475,18 +999,27 @@ def _latency_summary(done: list[Request]) -> dict:
 def serve_requests(cfg, params, requests, *, slots: int = 4,
                    max_seq: int = 64, tp: int = 1, impl: str = "cuda",
                    max_concurrency: int | None = None, paged: bool = False,
-                   stall_limit: int = 256, mesh=None
+                   page_size: int = 8, n_pages: int | None = None,
+                   prefill_chunk: int = 16, age_steps: int = 32,
+                   stall_limit: int = 256, mesh=None, sanitize: bool = False
                    ) -> tuple[list[Request], dict]:
-    """Submit ``requests`` to a :class:`ServeEngine`, drain it, return
-    ``(requests, stats)``: every submitted request comes back with a
-    terminal ``status``, counted once in ``stats["status_counts"]``.
-    ``max_concurrency=1`` is the sequential one-request-at-a-time baseline
-    (identical math and shapes, no batching across requests)."""
+    """Submit ``requests``, drain the engine, return ``(requests, stats)``:
+    every submitted request comes back with a terminal ``status``, counted
+    once in ``stats["status_counts"]``.  ``max_concurrency=1`` is the
+    sequential one-request-at-a-time baseline (identical math and shapes,
+    no batching across requests); ``paged=True`` runs the page-table
+    engine of DESIGN.md §12 instead of the slot-pinned one."""
     if paged:
-        raise NotImplementedError(_DEFERRED_FLAGS["paged"])
-    eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, tp=tp,
-                      impl=impl, max_concurrency=max_concurrency,
-                      stall_limit=stall_limit, mesh=mesh)
+        eng = PagedServeEngine(
+            cfg, params, slots=slots, max_seq=max_seq, tp=tp, impl=impl,
+            max_concurrency=max_concurrency, page_size=page_size,
+            n_pages=n_pages, prefill_chunk=prefill_chunk,
+            age_steps=age_steps, stall_limit=stall_limit, mesh=mesh,
+            sanitize=sanitize)
+    else:
+        eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, tp=tp,
+                          impl=impl, max_concurrency=max_concurrency,
+                          stall_limit=stall_limit, mesh=mesh)
     for req in requests:
         eng.submit(req)
     done = eng.run()
@@ -494,6 +1027,7 @@ def serve_requests(cfg, params, requests, *, slots: int = 4,
     return done, {"decode_steps": eng.decode_steps,
                   "prefill_tokens": eng.prefill_tokens,
                   "generated": eng.generated,
+                  "preemptions": getattr(eng, "preemptions", 0),
                   "status_counts": dict(sorted(status_counts.items())),
                   **_latency_summary(done)}
 
@@ -536,9 +1070,18 @@ def main(argv=None) -> None:
     ap.add_argument("--sequential", action="store_true",
                     help="one-request-at-a-time baseline (max_concurrency=1)")
     ap.add_argument("--paged", action="store_true",
-                    help=_DEFERRED_FLAGS["paged"])
+                    help="page-table KV engine (DESIGN.md §12)")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="KV rows per page (paged engine)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="physical pool size in pages (default: dense-"
+                         "equivalent capacity)")
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="prompt tokens prefilled per engine step (paged)")
     ap.add_argument("--sanitize", action="store_true",
-                    help=_DEFERRED_FLAGS["sanitize"])
+                    help="debug mode: assert the paged page-table/allocator "
+                         "invariants after every engine tick "
+                         "(repro_torch.analysis.kv_sanitizer)")
     ap.add_argument("--mesh", default=None, metavar="data=D,model=T",
                     help=_DEFERRED_FLAGS["mesh"])
     ap.add_argument("--long-every", type=int, default=0,
@@ -559,6 +1102,12 @@ def main(argv=None) -> None:
                          "(repeatable)")
     ap.add_argument("--inject-seed", type=int, default=0,
                     help="seed for the fault-injection schedules")
+    ap.add_argument("--tuning-db", default=None,
+                    help="tuning database (tuner/db.py); defaults to "
+                         "artifacts/torch_tuning_db.json")
+    ap.add_argument("--tuned-app", default=None,
+                    help="co-design app whose tuned kernel blocks to "
+                         "install (default: the arch name)")
     ap.add_argument("--trace", action="store_true",
                     help="enable the observability layer (DESIGN.md §13) "
                          "and export telemetry + a Perfetto trace")
@@ -592,6 +1141,13 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    # measured-autotuning pickup (DESIGN.md §8.4): install the app's tuned
+    # block shapes as dispatch defaults; shape-exact DB records still win
+    from repro_torch.kernels import ops
+    tuned = ops.configure(app=args.tuned_app or args.arch,
+                          db_path=args.tuning_db)
+    if tuned:
+        print(f"tuned kernel blocks installed: gemm={tuned['gemm']}")
     if cfg.embed_inputs:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode loop "
                          f"(DESIGN.md §5)")
@@ -608,7 +1164,9 @@ def main(argv=None) -> None:
     done, stats = serve_requests(
         cfg, params, requests, slots=args.slots, max_seq=args.max_seq,
         impl=impl, max_concurrency=1 if args.sequential else None,
-        stall_limit=args.stall_limit)
+        paged=args.paged, page_size=args.page_size, n_pages=args.pages,
+        prefill_chunk=args.prefill_chunk, stall_limit=args.stall_limit,
+        sanitize=args.sanitize and args.paged)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.time() - t0
@@ -617,7 +1175,8 @@ def main(argv=None) -> None:
         print(f"req {req.rid}: prompt[{len(req.prompt)}] -> "
               f"{req.out}{tail}")
     print(f"{len(done)} requests, {stats['generated']} tokens in "
-          f"{stats['decode_steps']} decode steps, "
+          f"{stats['decode_steps']} decode steps "
+          f"({stats['preemptions']} preemptions), "
           f"{stats['generated'] / dt:.1f} tok/s on {args.device}")
     print("status: " + ", ".join(f"{k}={v}" for k, v in
                                  stats["status_counts"].items()))

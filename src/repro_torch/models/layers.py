@@ -17,14 +17,17 @@ Port of ``repro/models/layers.py``.  Conventions kept from it:
 
 The KV cache is updated in place (the reference returns a new cache): a
 decode step writes one row per slot instead of copying the whole cache.
-Not ported yet: the MoE layer and the paged KV pool (``gather_pages`` and
-the ``row_map`` branch), ROADMAP A.5.
+A paged KV pool (:func:`init_paged_kv_pool`) holds one scratch row past
+the rows a page table can map: every write that the reference drops
+(``mode="drop"``) lands there instead, so the scatter keeps a fixed shape.
+The sharding hints of the reference (``constrain``) are left out: without
+a device mesh they do nothing.
 """
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +36,6 @@ from repro_torch.kernels import ops
 from .config import ModelConfig
 
 Params = dict[str, Any]
-
-_DEFERRED = "not ported yet (ROADMAP A.5: {what})"
-
 
 def deferred(item: str, what: str):
     """A stand-in for a function of the reference not ported yet: calling
@@ -171,18 +171,63 @@ def _to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def gather_pages(pool: torch.Tensor, row_map: torch.Tensor):
-    raise NotImplementedError(_DEFERRED.format(what="paged KV pool"))
+def gather_pages(pool: torch.Tensor, row_map: torch.Tensor) -> torch.Tensor:
+    """Page-table gather: physical pool ``(R, ...)`` -> per-slot dense view
+    ``(B, L, ...)`` where row ``i`` of slot ``b`` is ``pool[row_map[b, i]]``.
+    Unmapped rows (``-1``) read as zeros, so the view is bit-identical to
+    the dense ``(B, L, ...)`` cache layout the non-paged engine carries."""
+    row_map = torch.as_tensor(row_map).to(pool.device).long()
+    valid = row_map >= 0
+    rows = pool[torch.where(valid, row_map, 0)]
+    valid = valid.reshape(row_map.shape + (1,) * (pool.dim() - 1))
+    return torch.where(valid, rows, torch.zeros((), dtype=pool.dtype,
+                                                device=pool.device))
+
+
+def _pool_rows(row_map, cpos: torch.Tensor, s: int,
+               scratch: int) -> torch.Tensor:
+    """Physical pool rows of the ``s`` logical rows each slot writes from
+    ``cpos``, (B, s) on the host.  Rows past the page table (a parked
+    slot) and unmapped (negative) entries go to the pool's scratch row
+    ``scratch``: left as they are, they would wrap onto the pool's last
+    rows, as they do under the reference's ``mode="drop"``."""
+    rm = torch.as_tensor(row_map).cpu().long()
+    rows = cpos[:, None] + torch.arange(s)
+    prow = rm.gather(1, rows.clamp(0, rm.shape[1] - 1))
+    return torch.where((rows < rm.shape[1]) & (prow >= 0), prow, scratch)
+
+
+# the pool's scratch row is its last (init_paged_kv_pool), so index -1
+# names it in every pool, whatever its size
+SCRATCH_ROW = -1
+
+
+class PageTable(NamedTuple):
+    """One step's page table on the card, shared by every paged layer:
+    ``map`` (B, L) the pool row of each logical row (-1 unmapped), and
+    ``write`` (B, S) the pool rows the step's S tokens land on (dropped
+    writes on :data:`SCRATCH_ROW`)."""
+    map: torch.Tensor
+    write: torch.Tensor
+
+
+def page_table(row_map, cpos: torch.Tensor, s: int, device) -> PageTable:
+    """The :class:`PageTable` of a step writing ``s`` tokens per slot at
+    host positions ``cpos`` through host ``row_map`` ((B, L) ints)."""
+    rm = torch.as_tensor(row_map).cpu().long()
+    return PageTable(_to_device(rm, device), _to_device(
+        _pool_rows(rm, cpos, s, SCRATCH_ROW), device))
 
 
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor, tp: int = 1, impl: str = "cuda",
               window: int = 0, cache: Params | None = None,
-              cache_pos=None, row_map=None):
+              cache_pos=None, pages: PageTable | None = None):
     """Returns (out, cache).  cache = {'k','v'}: (B, S_max, KV, hd), written
-    in place at ``cache_pos`` (per slot, (B,); a scalar broadcasts)."""
-    if row_map is not None:
-        raise NotImplementedError(_DEFERRED.format(what="paged KV pool"))
+    in place at ``cache_pos`` (per slot, (B,); a scalar broadcasts); or,
+    when ``pages`` is given and the leaves are 3-D, a paged physical pool
+    (R + 1, KV, hd) written and read through the page table.  Ring leaves
+    stay dense, so one model can mix both."""
     pd = cfg.padded(tp)
     h, kv, hd = pd.n_heads, pd.n_kv_heads, cfg.head_dim
 
@@ -198,28 +243,40 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     if cache is not None:
         # decode: insert current k/v, attend over the prefix.  Sliding-window
         # layers may carry a ring buffer of `window` slots (slot = pos % W).
-        cache_len = cache["k"].shape[1]
-        ring = window > 0 and cache_len == window
+        paged = pages is not None and cache["k"].dim() == 3
+        cache_len = pages.map.shape[1] if paged else cache["k"].shape[1]
+        ring = not paged and window > 0 and cache_len == window
         bsz, sq = q.shape[0], q.shape[1]
         cpos = _positions_host(cache_pos, bsz)
         dev = x.device
-
-        # rows each slot writes; a row past the cache (a retired slot
-        # parked at max_seq) is dropped, as the reference's mode="drop"
-        # does -- torch indexing would raise, or wrap a negative index
         kept = min(sq, window) if ring else sq
-        rows = cpos[:, None] + (sq - kept) + torch.arange(kept)
-        if ring:
-            rows = rows % window
-        valid = (rows >= 0) & (rows < cache_len)
-        b_sel, t_sel = (_to_device(i, dev)
-                        for i in valid.nonzero(as_tuple=True))
-        r_sel = _to_device(rows[valid], dev)
 
-        def put(name, val):
-            val = val[:, sq - kept:]     # a full ring wrap keeps the tail
-            cache[name][b_sel, r_sel] = val[b_sel, t_sel].to(
-                cache[name].dtype)
+        if paged:
+            # every lane writes: dropped rows land on the scratch row
+            def put(name, val):
+                cache[name][pages.write] = val.to(cache[name].dtype)
+
+            def full(name):
+                return gather_pages(cache[name], pages.map)
+        else:
+            # rows each slot writes; a row past the cache (a retired slot
+            # parked at max_seq) is dropped, as the reference's mode="drop"
+            # does -- torch indexing would raise, or wrap a negative index
+            rows = cpos[:, None] + (sq - kept) + torch.arange(kept)
+            if ring:
+                rows = rows % window
+            valid = (rows >= 0) & (rows < cache_len)
+            b_sel, t_sel = (_to_device(i, dev)
+                            for i in valid.nonzero(as_tuple=True))
+            r_sel = _to_device(rows[valid], dev)
+
+            def put(name, val):
+                val = val[:, sq - kept:]     # a full ring wrap keeps the tail
+                cache[name][b_sel, r_sel] = val[b_sel, t_sel].to(
+                    cache[name].dtype)
+
+            def full(name):
+                return cache[name]
 
         if "k_scale" in cache:   # int8 KV: per-(token, head) scales
             def quant(z):
@@ -232,12 +289,12 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             put("v", vq)
             put("k_scale", ks)
             put("v_scale", vs)
-            ck = cache["k"].float() * cache["k_scale"][..., None]
-            cv = cache["v"].float() * cache["v_scale"][..., None]
+            ck = full("k").float() * full("k_scale")[..., None]
+            cv = full("v").float() * full("v_scale")[..., None]
         else:
             put("k", k)
             put("v", v)
-            ck, cv = cache["k"], cache["v"]
+            ck, cv = full("k"), full("v")
 
         last = cpos + sq - 1                                 # (B,)
         if ring:
@@ -297,6 +354,24 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_kv_pool(cfg: ModelConfig, rows: int, tp: int = 1,
+                       dtype=torch.bfloat16, device="cuda") -> Params:
+    """Physical KV pool of ``rows`` page-resident rows shared by every slot,
+    plus one scratch row (index ``rows``) that takes the writes a page
+    table does not map.  Same leaf set as :func:`init_kv_cache` minus the
+    slot axis: the engine's page table supplies the slot -> row
+    indirection."""
+    pd = cfg.padded(tp)
+    shape = (rows + 1, pd.n_kv_heads, cfg.head_dim)
+    if cfg.kv_int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:2], device=device),
+                "v_scale": torch.zeros(shape[:2], device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
@@ -315,5 +390,81 @@ def mlp(params: Params, x: torch.Tensor, gelu: bool = False) -> torch.Tensor:
     return (act * (x @ params["w_up"])) @ params["w_down"]
 
 
-def moe(params: Params, cfg: ModelConfig, x: torch.Tensor, tp: int):
-    raise NotImplementedError(_DEFERRED.format(what="MoE layer"))
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k router, capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
+    pd = cfg.padded(tp)
+    e, d, f = pd.n_experts, cfg.d_model, cfg.moe_d_ff
+    # padded experts are routed -inf -> never selected (exact)
+    mask = torch.where(torch.arange(e, device=device) < cfg.n_experts,
+                       0.0, -1e30)
+    return {
+        "router": _normal(gen, (d, e), d ** -0.5, torch.float32, device),
+        "router_mask": mask,
+        "w_gate": _normal(gen, (e, d, f), d ** -0.5, dtype, device),
+        "w_up": _normal(gen, (e, d, f), d ** -0.5, dtype, device),
+        "w_down": _normal(gen, (e, f, d), f ** -0.5, dtype, device),
+    }
+
+
+def _dispatch_group(x2, logits, k: int, cap: int):
+    """Group-local top-k routing + capacity scatter, for every group (the
+    batch rows) at once.  x2: (B, T, d); logits: (B, T, E).  Returns (buf
+    (B, E, cap, d), flat_e, slot, keep, gates)."""
+    b, t, d = x2.shape
+    e = logits.shape[-1]
+    # jax.lax.top_k breaks ties towards the lower index: a stable
+    # descending sort does too
+    top_vals, top_idx = torch.sort(logits, dim=-1, descending=True,
+                                   stable=True)
+    top_vals, top_idx = top_vals[..., :k], top_idx[..., :k]  # (B, T, K)
+    gates = torch.softmax(top_vals, dim=-1).to(x2.dtype)
+    flat_e = top_idx.reshape(b, t * k)                     # token-major
+    # position-within-expert via a stable sort's ranking
+    sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
+    start = torch.searchsorted(
+        sorted_e, torch.arange(e, device=x2.device).repeat(b, 1))
+    pos_sorted = torch.arange(t * k, device=x2.device) \
+        - start.gather(1, sorted_e)
+    mypos = torch.zeros_like(flat_e).scatter(1, order, pos_sorted)
+    keep = (mypos < cap)[..., None].to(x2.dtype)
+    slot = mypos.clamp(max=cap - 1)
+    xrep = x2[:, :, None, :].expand(b, t, k, d).reshape(b, t * k, d)
+    # a dropped token adds zeros onto slot cap - 1: the scatter must
+    # accumulate, or it would overwrite the kept token there
+    g_idx = torch.arange(b, device=x2.device)[:, None].expand(b, t * k)
+    buf = x2.new_zeros((b, e, cap, d)).index_put_(
+        (g_idx, flat_e, slot), xrep * keep, accumulate=True)
+    return buf, flat_e, slot, keep, gates
+
+
+def moe(params: Params, cfg: ModelConfig, x: torch.Tensor,
+        tp: int = 1) -> torch.Tensor:
+    """Grouped capacity-dispatch MoE: routing, ranking and the capacity
+    scatter run per batch row (a group), the expert products over every
+    group's (E, cap) buffer.  FLOPs scale with top_k·T (capacity
+    ``capacity_factor``), not E·T; ``cap`` depends on the sequence length,
+    so a prompt prefilled in chunks may drop other tokens than prefilled
+    whole."""
+    b, s, d = x.shape
+    e = params["w_gate"].shape[0]
+    k = cfg.top_k
+    cap = max(8, int(math.ceil(s * k / e * cfg.capacity_factor)))
+
+    logits = x.float() @ params["router"] + params["router_mask"]
+    buf, flat_e, slot, keep, gates = _dispatch_group(x, logits, k, cap)
+    if cfg.moe_int8_dispatch:
+        # the dispatch buffer quantized to int8 as the reference does
+        scale = torch.amax(torch.abs(buf.float()), dim=-1,
+                           keepdim=True) / 127.0 + 1e-12
+        q = torch.round(buf.float() / scale).to(torch.int8)
+        buf = (q.float() * scale).to(x.dtype)
+    h = (F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
+         * torch.einsum("becd,edf->becf", buf, params["w_up"]))
+    out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    g_idx = torch.arange(b, device=x.device)[:, None]
+    out_tok = out_buf[g_idx, flat_e, slot] * keep          # (B, S*K, d)
+    out = (out_tok.reshape(b, s, k, d) * gates[..., None]).sum(dim=2)
+    return out.to(x.dtype)

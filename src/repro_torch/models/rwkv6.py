@@ -12,8 +12,8 @@ decode step keeps the log-decay in float32 and runs the recurrence step as
 einsums (no kernel launch).
 
 The cache is the recurrent state, O(1) in sequence length, written in
-place.  Not ported (ROADMAP A.6): the paged-cache aliases and the
-tensor-parallel specs; they raise.
+place; the paged engine pages nothing of it (its paged cache is the dense
+cache).  Not ported (ROADMAP A.8): the tensor-parallel specs; they raise.
 """
 from __future__ import annotations
 
@@ -211,10 +211,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     """State-carried step, O(1) in context length.  ``tokens`` may be
     (B, 1) (decode: the einsum step) or (B, S) (slot prefill: the kernel);
     ``pos`` is accepted for API uniformity but unused, since the recurrent
-    state, not a position, carries the history.  The cache is written in
-    place and returned."""
-    if row_map is not None:
-        raise NotImplementedError("not ported yet (ROADMAP A.6: paged cache)")
+    state, not a position, carries the history; ``row_map`` is likewise
+    accepted and ignored (no leaf is paged).  The cache is written in place
+    and returned."""
     x = L.embed(params["embed"], tokens)
     for i in range(cfg.n_layers):
         st = layer(cache, i)
@@ -226,6 +225,25 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     return L.unembed(params["head"], x, cfg.vocab), cache
 
 
-specs = cache_specs = L.deferred("A.6", "tensor-parallel specs")
-init_paged_cache = paged_cache_specs = paged_slot_axes = pack_paged_slot = \
-    L.deferred("A.6", "paged cache")
+def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
+                     tp: int = 1, dtype=None, device="cuda") -> Params:
+    """Paged-API alias: recurrent state is O(1) per slot, so there is
+    nothing to page; the family joins the paged engine with zero pool rows
+    and the same per-slot state as the dense engine."""
+    return init_cache(cfg, slots, max_seq, tp, dtype, device)
+
+
+def paged_slot_axes(cfg: ModelConfig) -> Params:
+    """No pooled leaves: every leaf is per-slot, as in
+    :func:`cache_slot_axes`."""
+    return cache_slot_axes(cfg)
+
+
+def pack_paged_slot(cfg: ModelConfig, pcache: Params, max_seq: int,
+                    seq_len: int) -> Params:
+    """Identity, as :func:`pack_slot_cache` (no sequence axis)."""
+    return pack_slot_cache(cfg, pcache, max_seq, seq_len)
+
+
+specs = cache_specs = paged_cache_specs = L.deferred(
+    "A.8", "tensor-parallel specs")

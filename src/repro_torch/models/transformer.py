@@ -1,13 +1,14 @@
 """Unified transformer family in PyTorch: dense GQA LMs (qwen3-8b,
-deepseek-*), gemma2 (alternating local/global layers, softcaps, sandwich
-norms, ring-buffer caches) and the hubert encoder, selected by ModelConfig
-flags.
+deepseek-*, the internvl2 backbone with its patch prefix), gemma2
+(alternating local/global layers, softcaps, sandwich norms, ring-buffer
+caches), MoE LMs (granite, moonshot) and the hubert encoder, selected by
+ModelConfig flags.
 
 Port of ``repro/models/transformer.py`` with its parameter layout: layers
 stacked on a leading axis (``{"all": ...}``, or ``{"local", "global"}`` for
 gemma2's alternation), so ``_run_layers`` is a loop over layer indices.
-Not ported yet (ROADMAP A.5): MoE blocks, the internvl2 patch prefix
-(``vis_tokens``) and the paged-cache functions.
+The paged cache keeps full-length KV in one physical pool per layer stack
+(``layers.init_paged_kv_pool``) and gemma2's rings per slot.
 """
 from __future__ import annotations
 
@@ -23,14 +24,6 @@ from .tree import params_from_numpy  # noqa: F401  (re-exported for callers)
 from .tree import layer, pad_rows, stacked_init, tree_map
 
 Params = dict[str, Any]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(L._DEFERRED.format(what="MoE layer"))
-    if cfg.vis_tokens:
-        raise NotImplementedError(
-            L._DEFERRED.format(what="internvl2 patch prefix"))
 
 
 # ---------------------------------------------------------------------------
@@ -49,22 +42,28 @@ def _block_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
                                         device=device)
         p["ln_mlp_post"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                        device=device)
-    p["mlp"] = L.mlp_init(gen, cfg, dtype, device)
+    if cfg.n_experts:
+        p["moe"] = L.moe_init(gen, cfg, tp, dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg, dtype, device)
     return p
 
 
 def _block(p: Params, cfg: ModelConfig, x, *, positions, tp, impl, window,
-           cache=None, cache_pos=None):
+           cache=None, cache_pos=None, pages=None):
     plus_one = cfg.sandwich_norm  # gemma-style (1+w) norms
     h = L.rms_norm(x, p["ln_attn"], plus_one=plus_one)
     attn_out, cache = L.attention(
         p["attn"], cfg, h, positions=positions, tp=tp, impl=impl,
-        window=window, cache=cache, cache_pos=cache_pos)
+        window=window, cache=cache, cache_pos=cache_pos, pages=pages)
     if cfg.sandwich_norm:
         attn_out = L.rms_norm(attn_out, p["ln_attn_post"], plus_one=True)
     x = x + attn_out
     h = L.rms_norm(x, p["ln_mlp"], plus_one=plus_one)
-    mlp_out = L.mlp(p["mlp"], h, gelu=cfg.gelu_mlp)
+    if cfg.n_experts:
+        mlp_out = L.moe(p["moe"], cfg, h, tp)
+    else:
+        mlp_out = L.mlp(p["mlp"], h, gelu=cfg.gelu_mlp)
     if cfg.sandwich_norm:
         mlp_out = L.rms_norm(mlp_out, p["ln_mlp_post"], plus_one=True)
     return x + mlp_out, cache
@@ -80,7 +79,6 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
     ``device``, with the reference's shapes and scales (not its numbers:
     the two generators differ; carry the reference's weights in with
     :func:`params_from_numpy`)."""
-    _check_supported(cfg)
     device = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -105,10 +103,12 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
 
 
 def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
-                caches=None, cache_pos=None):
+                caches=None, cache_pos=None, pages=None):
     """Run the block stack in order; returns (x, caches), the caches
-    written in place."""
-    kw = dict(positions=positions, tp=tp, impl=impl, cache_pos=cache_pos)
+    written in place.  ``pages`` is the step's page table, shared by
+    every paged layer."""
+    kw = dict(positions=positions, tp=tp, impl=impl, cache_pos=cache_pos,
+              pages=pages)
     if cfg.alt_local_global:
         groups = [("local", cfg.local_window), ("global", 0)]
         n = cfg.n_layers // 2
@@ -125,8 +125,11 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
 def _embed_inputs(params, cfg: ModelConfig, inputs: Params) -> torch.Tensor:
     if cfg.embed_inputs:                       # hubert: precomputed frames
         return inputs["frames"]
-    return L.embed(params["embed"], inputs["tokens"],
-                   scale=cfg.name.startswith("gemma"))
+    x = L.embed(params["embed"], inputs["tokens"],
+                scale=cfg.name.startswith("gemma"))
+    if cfg.vis_tokens:                         # internvl2: patch prefix
+        x = torch.cat([inputs["patches"].to(x.dtype), x], dim=1)
+    return x
 
 
 def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
@@ -134,7 +137,6 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
     """Full-sequence forward -> logits (prefill scoring / encoder).  Every
     layer's attention goes through ``ops.attention`` (the flash kernel when
     ``impl='cuda'``)."""
-    _check_supported(cfg)
     x = _embed_inputs(params, cfg, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -144,11 +146,17 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
     return L.unembed(head, x, cfg.vocab, cap=cfg.final_softcap)
 
 
+def _stacked(n: int, leaves: Params, device) -> Params:
+    """``n`` zero copies of the (meta) ``leaves`` stacked on a leading
+    axis, on ``device``."""
+    return tree_map(lambda x: torch.zeros((n, *x.shape), dtype=x.dtype,
+                                          device=device), leaves)
+
+
 def _stack_of(cfg: ModelConfig, n: int, batch: int, seq: int, tp: int,
               dtype, device) -> Params:
-    return tree_map(lambda x: torch.zeros((n, *x.shape), dtype=x.dtype,
-                                      device=device),
-                L.init_kv_cache(cfg, batch, seq, tp, dtype, device="meta"))
+    return _stacked(n, L.init_kv_cache(cfg, batch, seq, tp, dtype,
+                                       device="meta"), device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
@@ -224,6 +232,58 @@ def cache_slot_axes(cfg: ModelConfig) -> Params:
     return {"all": one}
 
 
+def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
+                     tp: int = 1, dtype=torch.bfloat16,
+                     device="cuda") -> Params:
+    """Paged serving cache: full-length attention KV lives in one physical
+    pool of ``rows`` page-resident rows (plus the scratch row) shared by
+    every slot, indexed through the engine's page table.  Sliding-window
+    ring layers keep their fixed per-slot ring: a ring is already
+    O(window) per slot, so paging it frees nothing."""
+    def pool(n):
+        return _stacked(n, L.init_paged_kv_pool(cfg, rows, tp, dtype,
+                                                device="meta"), device)
+
+    if cfg.alt_local_global:
+        n = cfg.n_layers // 2
+        local_seq = min(max_seq, cfg.local_window or max_seq)
+        return {"local": _stack_of(cfg, n, slots, local_seq, tp, dtype,
+                                   device),
+                "global": pool(n)}
+    return {"all": pool(cfg.n_layers)}
+
+
+def paged_slot_axes(cfg: ModelConfig) -> Params:
+    """Scatter map for the paged cache: ``"pool"`` marks leaves living in
+    the shared physical pool (written through page-table rows); ints are
+    the slot-axis index of per-slot dense leaves, as in
+    :func:`cache_slot_axes`."""
+    axes = cache_slot_axes(cfg)
+    pooled = "global" if cfg.alt_local_global else "all"
+    axes[pooled] = {name: "pool" for name in axes[pooled]}
+    return axes
+
+
+def pack_paged_slot(cfg: ModelConfig, pcache: Params, max_seq: int,
+                    seq_len: int) -> Params:
+    """Repack a batch-1 prefill cache for the paged layout: ring leaves are
+    folded exactly as in :func:`pack_slot_cache`; pool leaves keep their raw
+    ``seq_len`` rows (the engine scatters them at page-table rows, so no
+    right-padding to ``max_seq`` ever exists)."""
+    if seq_len > max_seq:
+        raise ValueError(f"prompt length {seq_len} exceeds max_seq {max_seq}")
+    if cfg.alt_local_global:
+        local_seq = min(max_seq, cfg.local_window or max_seq)
+        if local_seq == cfg.local_window:
+            local = tree_map(lambda x: _fold_ring(x, local_seq, seq_len),
+                             pcache["local"])
+        else:
+            local = tree_map(lambda x: pad_rows(x, local_seq),
+                             pcache["local"])
+        return {"local": local, "global": pcache["global"]}
+    return {"all": pcache["all"]}
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 tokens: torch.Tensor, pos, *, tp: int = 1,
                 impl: str = "cuda", row_map=None
@@ -231,17 +291,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     """One autoregressive step: tokens (B, S) at per-slot absolute positions
     ``pos`` ((B,) ints, host data; a scalar broadcasts).  S=1 is the serving
     decode step; S>1 is a slot prefill (one causal forward whose K/V land in
-    the cache at ``pos .. pos+S-1``).  The cache is written in place and
-    returned."""
-    _check_supported(cfg)
-    if row_map is not None:
-        raise NotImplementedError(L._DEFERRED.format(what="paged KV pool"))
+    the cache at ``pos .. pos+S-1``).  ``row_map`` ((B, L) host ints)
+    routes pooled KV leaves through the paged engine's page table.  The
+    cache is written in place and returned."""
     x = L.embed(params["embed"], tokens, scale=cfg.name.startswith("gemma"))
     b, s, _ = x.shape
     cpos = L._positions_host(pos, b)
     positions = L._to_device(cpos[:, None] + torch.arange(s), x.device)
+    pages = None if row_map is None else L.page_table(row_map, cpos, s,
+                                                      x.device)
     x, cache = _run_layers(params, cfg, x, positions=positions, tp=tp,
-                           impl=impl, caches=cache, cache_pos=cpos)
+                           impl=impl, caches=cache, cache_pos=cpos,
+                           pages=pages)
     x = L.rms_norm(x, params["final_norm"], plus_one=cfg.sandwich_norm)
     head = params.get("head", params["embed"])
     logits = L.unembed(head, x, cfg.vocab, cap=cfg.final_softcap)

@@ -13,10 +13,13 @@ import torch
 Params = dict[str, Any]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same-keyed leaves of the
+    trees ``rest``), as a tree of the results."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def leaves(tree):

@@ -15,8 +15,9 @@ The shared block reuses ``layers.attention`` / ``layers.mlp``: in the
 full-sequence forward its attention is the flash kernel at head_dim 80.
 
 Decode carries (conv tail, SSD state) per layer and the KV cache per
-shared-block call, written in place.  Not ported (ROADMAP A.6): the paged
-cache and the tensor-parallel specs; they raise.
+shared-block call, written in place.  The paged cache pools the
+shared-attention KV and keeps the conv/SSD state per slot.  Not ported
+(ROADMAP A.8): the tensor-parallel specs; they raise.
 """
 from __future__ import annotations
 
@@ -131,10 +132,11 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
 
 
 def _shared_attn(shared: Params, cfg: ModelConfig, x, *, positions, tp,
-                 impl, cache=None, cache_pos=None):
+                 impl, cache=None, cache_pos=None, pages=None):
     h = L.rms_norm(x, shared["ln_attn"])
     att, _ = L.attention(shared["attn"], cfg, h, positions=positions, tp=tp,
-                         impl=impl, cache=cache, cache_pos=cache_pos)
+                         impl=impl, cache=cache, cache_pos=cache_pos,
+                         pages=pages)
     x = x + att
     return x + L.mlp(shared["mlp"], L.rms_norm(x, shared["ln_mlp"]))
 
@@ -169,7 +171,7 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
 
 
 def _run(params: Params, cfg: ModelConfig, x, *, positions, tp, impl,
-         cache: Params | None = None, cache_pos=None):
+         cache: Params | None = None, cache_pos=None, pages=None):
     """The groups in order: each group's Mamba blocks, then the shared
     block; with a cache, every state is read and written in place."""
     g = _n_groups(cfg)
@@ -187,7 +189,7 @@ def _run(params: Params, cfg: ModelConfig, x, *, positions, tp, impl,
                          tp=tp, impl=impl,
                          cache=None if cache is None
                          else layer(cache["attn"], gi),
-                         cache_pos=cache_pos)
+                         cache_pos=cache_pos, pages=pages)
     x = L.rms_norm(x, params["final_norm"])
     return L.unembed(params["head"], x, cfg.vocab)
 
@@ -248,23 +250,56 @@ def cache_slot_axes(cfg: ModelConfig) -> Params:
     return {"conv": 2, "ssd": 2, "attn": {name: 1 for name in names}}
 
 
+def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
+                     tp: int = 1, dtype=None, device="cuda") -> Params:
+    """Paged serving cache: conv/SSD states stay per slot (O(1) in sequence
+    length, nothing to page); the shared-attention KV moves into one
+    physical pool of ``rows`` rows (plus the scratch row) per group."""
+    cache = init_cache(cfg, slots, 0, tp, dtype, device)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    cache["attn"] = tree_map(
+        lambda x: torch.zeros((_n_groups(cfg), *x.shape), dtype=x.dtype,
+                              device=device),
+        L.init_paged_kv_pool(cfg, rows, tp, dtype, device="meta"))
+    return cache
+
+
+def paged_slot_axes(cfg: ModelConfig) -> Params:
+    """Scatter map for the paged cache: ``"pool"`` marks pooled KV leaves,
+    ints the slot axis of per-slot recurrent leaves."""
+    axes = cache_slot_axes(cfg)
+    axes["attn"] = {name: "pool" for name in axes["attn"]}
+    return axes
+
+
+def pack_paged_slot(cfg: ModelConfig, pcache: Params, max_seq: int,
+                    seq_len: int) -> Params:
+    """Paged repack: recurrent states carry as they are; the attention KV
+    keeps its raw ``seq_len`` rows for the engine's page-table scatter (no
+    padding)."""
+    if seq_len > max_seq:
+        raise ValueError(f"prompt length {seq_len} exceeds max_seq {max_seq}")
+    return pcache
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 tokens: torch.Tensor, pos, *, tp: int = 1, impl="cuda",
                 row_map=None) -> tuple[torch.Tensor, Params]:
     """Decode ``tokens (B, S)`` at per-slot positions ``pos`` ((B,) ints,
     host data; a scalar broadcasts); S > 1 is a slot prefill (the Mamba
     layers through the kernel, the shared block's attention against its
-    cache).  The cache is written in place and returned."""
-    if row_map is not None:
-        raise NotImplementedError("not ported yet (ROADMAP A.6: paged cache)")
+    cache).  ``row_map`` ((B, L) host ints) routes the pooled attention KV
+    through the paged engine's page table.  The cache is written in place
+    and returned."""
     x = L.embed(params["embed"], tokens)
     b, s, _ = x.shape
     cpos = L._positions_host(pos, b)
     positions = L._to_device(cpos[:, None] + torch.arange(s), x.device)
+    pages = None if row_map is None else L.page_table(row_map, cpos, s,
+                                                      x.device)
     return _run(params, cfg, x, positions=positions, tp=tp, impl=impl,
-                cache=cache, cache_pos=cpos), cache
+                cache=cache, cache_pos=cpos, pages=pages), cache
 
 
-specs = cache_specs = L.deferred("A.6", "tensor-parallel specs")
-init_paged_cache = paged_cache_specs = paged_slot_axes = pack_paged_slot = \
-    L.deferred("A.6", "paged cache")
+specs = cache_specs = paged_cache_specs = L.deferred(
+    "A.8", "tensor-parallel specs")

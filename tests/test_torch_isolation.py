@@ -1,10 +1,11 @@
-"""The port (``repro_torch``) and ``chip_smoke.py`` stand alone: they import
-neither JAX nor anything of the reference package ``repro``.
+"""The port (``repro_torch``), ``chip_smoke.py`` and
+``examples/quickstart_torch.py`` stand alone: they import neither JAX nor
+anything of the reference package ``repro``.
 
 Checked twice: dynamically, by importing every port module in a fresh
 interpreter where ``jax`` is blocked and a meta-path hook refuses
 ``repro``/``repro.*``; and statically, by scanning every import statement
-of the port's files and of ``chip_smoke.py``.
+of the port's files, of ``chip_smoke.py`` and of the quickstart.
 """
 import ast
 import os
@@ -15,6 +16,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 
 
 def _port_modules() -> list[str]:
@@ -54,7 +56,10 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.rwkv6", "repro_torch.models.zamba2",
             "repro_torch.kernels.rwkv6", "repro_torch.kernels.mamba2",
-            "repro_torch.kernels.xla_linear"} <= set(mods)
+            "repro_torch.kernels.xla_linear", "repro_torch.core.nsga2",
+            "repro_torch.core.random_search", "repro_torch.obs.__main__",
+            "repro_torch.launch.paging",
+            "repro_torch.analysis.kv_sanitizer"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
@@ -74,8 +79,8 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_file_of_the_port_or_the_smoke_names_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE]
-    assert SMOKE.exists()
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, QUICKSTART]
+    assert SMOKE.exists() and QUICKSTART.exists()
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
            if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []

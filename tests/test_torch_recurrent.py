@@ -195,15 +195,33 @@ def test_ragged_prompt_matches_token_by_token_decode(arch, n):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_unported_variants_raise(arch):
+    """The tensor-parallel specs raise (ROADMAP A.8); the paged cache is
+    ported: rwkv6 pages nothing (its paged cache is its dense cache), and
+    zamba2 pools the shared-attention KV beside per-slot conv/SSD state,
+    whose decode through a page table equals the dense decode."""
     cfg, _, _, params = _model(arch)
     mod = family_module(cfg)
-    for fn, args in ((mod.init_paged_cache, (cfg, 2, 8, 8)),
-                     (mod.specs, (cfg,)), (mod.cache_specs, (cfg,))):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            fn(*args)
+    for fn in (mod.specs, mod.cache_specs, mod.paged_cache_specs):
+        with pytest.raises(NotImplementedError, match="A.8"):
+            fn(cfg)
     cache = mod.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        mod.decode_step(params, cfg, cache, torch.zeros(1, 1, dtype=int), 0,
-                        impl="torch", row_map=np.zeros((1, 8)))
     with pytest.raises(ValueError, match="max_seq"):
         mod.pack_slot_cache(cfg, cache, 4, 5)
+    with pytest.raises(ValueError, match="max_seq"):
+        mod.pack_paged_slot(cfg, cache, 4, 5)
+    paged = mod.init_paged_cache(cfg, 1, 8, 8, device="cpu")
+    axes = mod.paged_slot_axes(cfg)
+    pooled = [n for n, ax in axes.get("attn", {}).items() if ax == "pool"]
+    assert pooled == (["k", "v"] if arch == "zamba2-2.7b" else [])
+    row_map = np.full((1, 8), -1, np.int32)
+    row_map[0, :4] = [6, 7, 2, 3]
+    toks = torch.tensor([[3, 5, 7, 9]])
+    got, _ = mod.decode_step(params, cfg, paged, toks, [0], impl="torch",
+                             row_map=row_map)
+    want, cache = mod.decode_step(params, cfg, cache, toks, [0],
+                                  impl="torch")
+    assert torch.equal(got, want)
+    for name in pooled:
+        rows = torch.tensor([6, 7, 2, 3])
+        assert torch.equal(paged["attn"][name][:, rows],
+                           cache["attn"][name][:, 0, :4])

@@ -27,12 +27,16 @@ from repro.launch import serve as jserve
 from repro.models import family_module as jfamily
 from repro.models import reduced as jreduced
 from repro_torch.configs import get_config
+from repro_torch.core.solution import mxu_legal
+from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch.serve import (EngineStalledError, FCFSScheduler,
                                       Request, ServeEngine, make_requests,
                                       serve_requests)
 from repro_torch.models import family_module, reduced
 from repro_torch.models import transformer as T
+from repro_torch.tuner.__main__ import main as tuner_main
+from repro_torch.tuner.db import TuningDB
 
 GEMMA_RING = (("local_window", 5), ("n_layers", 4))
 PATTERN_BURST = {0: 6}                        # all up front, 6 reqs > 4 slots
@@ -244,17 +248,40 @@ def test_stall_raises_with_diagnostics():
     assert err.value.diagnostics["waiting"] == [0]
 
 
-def test_encoder_and_unported_options_raise():
+def test_encoder_and_unported_options_raise(tmp_path, capsys):
+    """The encoder and ``--mesh`` raise; ``--paged``, ``--sanitize`` and
+    the tuned-blocks flags (``--tuned-app`` with a DB the port's tuner
+    wrote) serve."""
     cfg, _, _, params = _model("qwen3-8b")
     with pytest.raises(ValueError, match="encoder-only"):
         ServeEngine(reduced(get_config("hubert-xlarge")), params)
     with pytest.raises(NotImplementedError, match="A.8"):
         ServeEngine(cfg, params, mesh=object())
-    with pytest.raises(NotImplementedError, match="paged"):
-        serve_requests(cfg, params, [], paged=True)
-    for flag in ("--paged", "--sanitize", "--mesh=data=1,model=1"):
-        with pytest.raises(SystemExit, match="not ported"):
-            serve.main(["--smoke", "--device", "cpu", flag])
+    with pytest.raises(NotImplementedError, match="A.8"):
+        serve_requests(cfg, params, [], paged=True, mesh=object())
+    with pytest.raises(SystemExit, match="not ported"):
+        serve.main(["--smoke", "--device", "cpu", "--mesh=data=1,model=1"])
+    done, stats = serve_requests(cfg, params, [], paged=True)
+    assert done == [] and stats["status_counts"] == {}
+
+    db = tmp_path / "db.json"
+    assert tuner_main(["--smoke", "--backend", "torch", "--db", str(db),
+                       "--warmup", "1", "--repeats", "2"]) == 0
+    want = TuningDB.load(db).apps["default"]["hw"]
+    capsys.readouterr()
+    try:
+        for flags in (["--paged"], ["--paged", "--sanitize"],
+                      ["--sanitize"], ["--tuned-app", "default",
+                                       "--tuning-db", str(db)]):
+            serve.main(["--smoke", "--device", "cpu", "--requests", "2",
+                        "--max-new", "3", *flags])
+            out = capsys.readouterr().out
+            assert "2 requests, 6 tokens" in out and "status: OK=2" in out
+        installed = ops.configure(app="default", db_path=db)
+    finally:
+        ops.reset_dispatch()
+    assert f"tuned kernel blocks installed: gemm={installed['gemm']}" in out
+    assert installed["gemm"]["bm"] == mxu_legal(want["pe_rows"], 8)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b"])

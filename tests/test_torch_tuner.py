@@ -11,6 +11,9 @@ driver, on the CPU with backend ``torch`` (the plain kernel versions).
   golden file: the reference itself drifts from it, ROADMAP queue C.2).
 * ``python -m repro_torch.tuner --smoke --backend torch`` returns 0 and
   writes a DB with ``torch`` records and a calibration.
+* ``examples/quickstart_torch.py --device cpu`` co-designs, saves the
+  port's registry and runs the tuned GEMM's plain version; without
+  ``--device cpu`` it asks for the card.
 """
 import math
 
@@ -185,3 +188,22 @@ def test_cli_checkpoint_flags_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         main(["--workload", "gemm:32,32,32", "--backend", "torch",
               "--checkpoint-dir", str(tmp_path)])
+
+
+def test_quickstart_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    import runpy
+    from pathlib import Path
+
+    script = Path(__file__).resolve().parents[1] / "examples" \
+        / "quickstart_torch.py"
+    quickstart = runpy.run_path(str(script))
+    monkeypatch.chdir(tmp_path)
+    quickstart["main"](["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "tuned GEMM blocks: bm=" in out
+    assert "tuned torch GEMM on cpu: max abs err vs the plain version 0.0" \
+        in out
+    assert (tmp_path / "artifacts" / "torch_solutions.json").exists()
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            quickstart["main"]([])
