@@ -114,7 +114,35 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      within MOE_TOL; then granite-moe-3b-a800m served paged as phase 17's
      first run, each first token held to its batch-1 chunked prefill.
      Phases 17 and 18 print tokens/s, TTFT p50/p95, decode-step ms,
-     prefill chunks and preemptions for each run.
+     prefill chunks and preemptions for each run;
+ 19. training and resume: (a) the attention ``torch.autograd.Function``'s
+     dq, dk, dv against autograd through the same forward loop, at
+     zamba2-2.7b's shared block (1024 tokens, H 32, D 80) and qwen3-8b's
+     GQA (H 32/8, D 128) with soft-cap, window, and Sq < Skv with Skv not
+     a multiple of the chunk, float32 (within ``VJP_TOL`` of each
+     gradient's largest value) and bfloat16 (no further from the float32
+     loop than ``VJP_BF16_FACTOR`` times the bfloat16 loop), each with its
+     peak memory beside the loop's; (b) step 0 of ``make_train_step`` on
+     the card against the CPU for reduced zamba2-2.7b and qwen3-8b in
+     float32 (loss, every grad leaf, the updated params); (c) zamba2-2.7b
+     at full width and depth (bfloat16, seeded random weights) taking 8
+     AdamW steps (peak lr 3e-4, warmup 5, cosine over 8) over
+     ``SyntheticLM`` batches of 1 x 1024 tokens through
+     ``Prefetcher``: finite losses, the loss falling, no attention or
+     recurrence kernel launched (training runs the plain versions), peak
+     memory under ``TRAIN_PEAK_LIMIT``, with each step's ms and tokens/s;
+     (d) ``python -m repro_torch.launch.train`` on the card: failure
+     injection at step 6, then a rerun that resumes from step 4 and
+     reaches step 11, and granite-moe with ``--grad-compression``; (e) the
+     measured co-design flow (``--intrinsics GEMM,DOT``, gemm 1024^3,
+     phase 4's depth) checkpointed per intrinsic, its newest payload
+     deleted, then resumed: the resumed run launches exactly the DOT
+     round's kernels (the tuner lowers a workload by its shape, so the DOT
+     round also runs ``gemm``), keeps the GEMM round's measured summary,
+     explores the same points in both rounds as the first run, and
+     commits one of its round's measured candidates (which one is host
+     timing where candidates share a kernel geometry; printed beside the
+     first run's).
 
 Each model is freed before the next one is drawn.
 
@@ -260,6 +288,42 @@ PRESSURE_PAGES = 200
 # largest output): both sum the d 1536 and f 512 products in other orders,
 # ~sqrt(K) float32 ulps apart
 MOE_TOL = (1e-4, 1e-5)
+# phase 19: the attention VJP's cases (B, Sq, Skv, H, Hkv, D, soft-cap,
+# window), causal: zamba2-2.7b's shared block and qwen3-8b's GQA at 1024
+# tokens, gemma2's soft-cap of 50, a window, and Sq < Skv with Skv not a
+# multiple of the 256-key chunk
+VJP_CASES = {
+    "zamba2 shared block": (1, 1024, 1024, 32, 32, 80, 0.0, 0),
+    "qwen3 GQA": (1, 1024, 1024, 32, 8, 128, 0.0, 0),
+    "soft-cap 50": (1, 1024, 1024, 32, 8, 128, 50.0, 0),
+    "window 384": (1, 1024, 1024, 32, 8, 128, 0.0, 384),
+    "Sq 200 < Skv 1000": (1, 200, 1000, 32, 8, 128, 0.0, 0),
+}
+# float32: each of dq, dk, dv within VJP_TOL of its largest |value| of
+# autograd through the same forward loop (the same float32 math summed in
+# other orders).  bfloat16: autograd through the loop in float32 on the same
+# values is the yardstick, and the Function may be no further from it than
+# autograd through the loop in bfloat16 is, times VJP_BF16_FACTOR (both
+# round the gradients to bfloat16 once)
+VJP_TOL = 1e-4
+VJP_BF16_FACTOR = 2.0
+# step 0 of make_train_step on the card against the CPU, reduced configs in
+# float32: the loss's relative difference; each grad and updated-param leaf
+# against its largest |value|
+TRAIN_CPU_TOL = dict(loss=1e-5, grad=1e-4)
+# the full-width training run: 8 AdamW steps of zamba2-2.7b over 1 x 1024
+# tokens.  Peak lr 3e-4: Adam moves every weight by about lr a step, and at
+# the trainer's default of 3e-3 (15% of the 0.02 init scale a step) the
+# full-width model's loss rose from step 2 and reached 27.0 at step 6 (an
+# H100 run: 10.92 at step 0, 11.16 at step 7), where the reduced configs
+# learn at 3e-3
+TRAIN_FULL = dict(arch="zamba2-2.7b", steps=8, seq_len=1024, batch=1,
+                  peak_lr=3e-4, warmup=5)
+TRAIN_PEAK_LIMIT = 75e9
+# the measured co-design resume: two intrinsics, two payloads
+RESUME_APP = ["--app", "resume", "--intrinsics", "GEMM,DOT", "--workload",
+              "gemm:1024,1024,1024"]
+RESUME_DB = ROOT / "artifacts" / "chip_smoke" / "resume_tuning_db.json"
 LIN_META = {
     "rwkv6": ("src/repro_torch/csrc/rwkv6.cu", "src/repro/kernels/rwkv6.py:95"),
     "mamba2": ("src/repro_torch/csrc/mamba2.cu",
@@ -450,6 +514,10 @@ def main() -> int:
     check_moe(torch)
     run_paged(torch, "granite-moe-3b-a800m")
     torch.cuda.empty_cache()
+
+    phase("19. training and resume: the attention VJP, a train step card vs "
+          "CPU, zamba2-2.7b at full width, the train CLI, co-design resume")
+    run_training(torch)
 
     flash_row = next(r_ for r_ in rows if r_["name"] == "flash_attention")
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
@@ -1843,6 +1911,328 @@ def time_recurrences(torch, launches, rates, bf16_peak) -> tuple:
                                 r"(?:<[^>]*>)?)\(", e.key)] if m}
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
     return rows, span_floor
+
+
+# -- training and resume (phase 19) -------------------------------------------
+
+def _vjp_case(torch, shape, dtype):
+    """One attention VJP case: the Function's (dq, dk, dv) on ``dtype``
+    inputs, autograd through the same forward loop on those inputs, and
+    autograd through the loop in float32 on the same values (the
+    yardstick); with each run's peak memory above the inputs."""
+    from repro_torch.kernels import xla_attention as XA
+
+    b, sq, skv, h, hkv, d, cap, win = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ins = [(_rand(torch, gen, b, sq, h, d, dtype=torch.float32)
+            * FLASH_Q_STD).to(dtype),
+           _rand(torch, gen, b, skv, hkv, d, dtype=dtype),
+           _rand(torch, gen, b, skv, hkv, d, dtype=dtype),
+           _rand(torch, gen, b, sq, h, d, dtype=dtype)]
+    sc = d ** -0.5
+
+    def run(fn, xs):
+        q, k, v, do = [x.detach().requires_grad_(i < 3)
+                       for i, x in enumerate(xs)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(fn(q, k, v), (q, k, v), do)
+        return grads, torch.cuda.max_memory_allocated() - base
+
+    function = lambda q, k, v: XA.attention(q, k, v, softcap=cap,
+                                            window=win)
+    loop = lambda q, k, v: XA._forward(q, k, v, True, cap, win, sc,
+                                       XA.DEFAULT_CHUNK)[0].to(q.dtype)
+    got, peak_fn = run(function, ins)
+    same, peak_loop = run(loop, ins)
+    f32, _ = run(loop, [x.float() for x in ins])
+    return got, same, f32, peak_fn, peak_loop
+
+
+def check_attention_vjp(torch) -> None:
+    """Phase 19 (a): the attention Function's gradients on the card."""
+    for name, shape in VJP_CASES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            got, same, f32, peak_fn, peak_loop = _vjp_case(torch, shape, dt)
+            readings = []
+            for g_name, g, s_, w in zip(("dq", "dk", "dv"), got, same, f32):
+                scale = float(w.abs().max())
+                require(bool(torch.isfinite(g).all()),
+                        f"attention VJP {name}: non-finite {g_name}")
+                err = float((g.float() - w).abs().max()) / scale
+                if dt == torch.float32:
+                    err_same = float((g - s_).abs().max()) / scale
+                    require(err_same <= VJP_TOL, f"attention VJP {name} "
+                            f"float32: {g_name} {err_same:.3g} of its max "
+                            f"from autograd through the loop > {VJP_TOL}")
+                    readings.append(f"{g_name} {err_same:.3g}")
+                else:
+                    err_loop = float((s_.float() - w).abs().max()) / scale
+                    require(err <= VJP_BF16_FACTOR * err_loop,
+                            f"attention VJP {name} bfloat16: {g_name} "
+                            f"{err:.3g} of its max from the float32 loop, "
+                            f"> {VJP_BF16_FACTOR} x the bfloat16 loop's "
+                            f"{err_loop:.3g}")
+                    readings.append(f"{g_name} {err:.3g} (loop "
+                                    f"{err_loop:.3g})")
+            what = ("vs autograd through the loop" if dt == torch.float32
+                    else "vs the float32 loop (the bfloat16 loop's own)")
+            print(f"  attention VJP {name} {tuple(shape)} "
+                  f"{str(dt).removeprefix('torch.')}: max err / max |grad| "
+                  f"{what}: {', '.join(readings)}; peak memory "
+                  f"{peak_fn / 1e6:.1f} MB (autograd through the loop "
+                  f"{peak_loop / 1e6:.1f} MB)")
+            del got, same, f32
+    torch.cuda.empty_cache()
+
+
+def check_train_step_vs_cpu(torch) -> None:
+    """Phase 19 (b): step 0 of make_train_step on the card and on the CPU,
+    reduced configs in float32, the same seeded params and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import (make_loss_fn, make_train_step,
+                                          value_and_grad)
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import family_module, params_from_numpy, reduced
+    from repro_torch.models.tree import leaves, tree_map
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    for arch in ("zamba2-2.7b", "qwen3-8b"):
+        cfg = reduced(get_config(arch), dtype="float32")
+        host = tree_map(lambda t: t.numpy(),
+                        family_module(cfg).init(cfg, seed=0, device="cpu"))
+        batch = SyntheticLM(cfg.vocab, 64, 2, seed=0).batch(0)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = params_from_numpy(host, device=dev)
+            b = to_device(batch, dev, torch.float32)
+            loss, grads = value_and_grad(make_loss_fn(cfg), params, b)
+            opt = AdamW(lr=cosine_schedule(3e-3, warmup=5, total=8))
+            params, _, m = make_train_step(cfg, opt)(params, opt.init(params),
+                                                     b)
+            runs[dev] = (float(loss), float(m["loss"]),
+                         [g.cpu() for g in leaves(grads)],
+                         [p.cpu() for p in leaves(params)])
+        (l_card, m_card, g_card, p_card), (l_cpu, m_cpu, g_cpu, p_cpu) = \
+            runs["cuda"], runs["cpu"]
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        require(rel <= TRAIN_CPU_TOL["loss"] and m_card == l_card,
+                f"{arch} step-0 loss card {l_card} vs CPU {l_cpu}")
+        worst = {}
+        for what, card, cpu in (("grad", g_card, g_cpu),
+                                ("param", p_card, p_cpu)):
+            errs = [float((a - b_).abs().max())
+                    / max(float(b_.abs().max()), 1e-30)
+                    for a, b_ in zip(card, cpu)]
+            worst[what] = max(errs)
+            require(worst[what] <= TRAIN_CPU_TOL["grad"],
+                    f"{arch}: a {what} leaf {worst[what]:.3g} of its max "
+                    f"from the CPU's > {TRAIN_CPU_TOL['grad']}")
+        print(f"  {cfg.name} float32 step 0, card vs CPU: loss {l_card:.6f}"
+              f" vs {l_cpu:.6f} (rel {rel:.3g}); worst leaf / its max: grads"
+              f" {worst['grad']:.3g}, updated params {worst['param']:.3g} "
+              f"({len(g_card)} leaves)")
+
+
+def run_full_width_training(torch) -> dict:
+    """Phase 19 (c): zamba2-2.7b at full width and depth takes AdamW steps
+    over SyntheticLM batches through Prefetcher, with the trainer's own
+    pieces and no checkpoint."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import Prefetcher, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import family_module
+    from repro_torch.models.tree import leaves
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    t = TRAIN_FULL
+    cfg = get_config(t["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = family_module(cfg).init(cfg, seed=0, device="cuda")
+    opt = AdamW(lr=cosine_schedule(t["peak_lr"], warmup=t["warmup"],
+                                   total=t["steps"]))
+    state = opt.init(params)
+    nbytes = lambda tree: sum(x.numel() * x.element_size()
+                              for x in leaves(tree))
+    n_params = sum(x.numel() for x in leaves(params))
+    # the grads take the params' bytes: the whole state is params twice
+    state_bytes = {"params": nbytes(params), "grads": nbytes(params),
+                   "m": nbytes(state.m), "v": nbytes(state.v)}
+    print(f"  {cfg.name}: {cfg.n_layers} Mamba-2 layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.dtype} with float32 "
+          f"leaves); state " + ", ".join(
+              f"{k} {v / 1e9:.2f} GB" for k, v in state_bytes.items())
+          + f": {sum(state_bytes.values()) / 1e9:.2f} GB")
+    data = SyntheticLM(cfg.vocab, t["seq_len"], t["batch"], seed=0)
+    fetch = Prefetcher(data.batch)
+    step_fn = make_train_step(cfg, opt)
+    _read_launches(reset=True)
+    losses, norms, times = [], [], []
+    for step in range(t["steps"]):
+        got_step, host = fetch.get()
+        require(got_step == step, f"prefetcher gave step {got_step}")
+        batch = to_device(host, "cuda", getattr(torch, cfg.dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        norms.append(gnorm)
+        times.append(dt)
+        tokens = t["seq_len"] * t["batch"]
+        print(f"  step {step}  loss {loss:.4f}  grad norm {gnorm:.4f}  "
+              f"{dt * 1e3:.1f} ms  {tokens / dt:.0f} tokens/s", flush=True)
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("flash_attention", "rwkv6", "mamba2")}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak memory {peak / 1e9:.2f} GB (limit "
+          f"{TRAIN_PEAK_LIMIT / 1e9:.0f}); kernel launches {launches}"
+          f"; steps 1-{t['steps'] - 1} median "
+          f"{sorted(times[1:])[len(times[1:]) // 2] * 1e3:.1f} ms")
+    for name in ("flash_attention", "rwkv6", "mamba2"):
+        require(launches[name] == 0, f"training launched {name}")
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"non-finite loss or grad norm: {losses}, {norms}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    require(peak < TRAIN_PEAK_LIMIT, f"peak memory {peak / 1e9:.2f} GB")
+    del params, state, m
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": [x * 1e3 for x in times], "peak": peak}
+
+
+def run_train_cli(torch) -> None:
+    """Phase 19 (d): the train CLI on the card (reduced configs): failure
+    injection then resume from step 4, and grad compression."""
+    ck = ROOT / "artifacts" / "chip_smoke" / "train_ckpt"
+    if ck.exists():
+        shutil.rmtree(ck)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    common = ["--arch", "qwen3-8b", "--smoke", "--steps", "12",
+              "--checkpoint-every", "4", "--checkpoint-dir", str(ck)]
+
+    def start(args):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+        print("$ " + " ".join(cmd[1:]), flush=True)
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def finish(proc):
+        out, err = proc.communicate(timeout=600)
+        for line in out.splitlines()[-3:]:
+            print("  " + line)
+        return proc.returncode, out, err
+
+    # the failing run and the compressed one are independent: together
+    inject = start(common + ["--inject-failure-at", "6"])
+    moe = start(["--arch", "granite-moe-3b-a800m", "--smoke", "--steps", "4",
+                 "--checkpoint-dir", str(ck / "moe"), "--grad-compression"])
+    rc, out, err = finish(inject)
+    require(rc != 0 and "injected failure at step 6" in out + err,
+            f"the injected run exited {rc} without its failure: {err[-2000:]}")
+    rc, out, err = finish(moe)
+    require(rc == 0, f"grad compression exited {rc}: {err[-2000:]}")
+    rc, out, err = finish(start(common))
+    require(rc == 0, f"the resumed run exited {rc}: {err[-2000:]}")
+    require("resumed from checkpoint step 4" in out and "step   11" in out,
+            "the rerun did not resume from step 4 and reach step 11")
+
+
+def run_codesign_resume(torch) -> None:
+    """Phase 19 (e): the measured co-design flow on the card, checkpointed
+    once per intrinsic, its newest payload deleted, then resumed."""
+    import numpy as np
+
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.kernels import KERNELS
+    from repro_torch.tuner import __main__ as tuner
+
+    ck = ROOT / "artifacts" / "chip_smoke" / "codesign_ckpt"
+    for path in (ck, RESUME_DB):
+        if path.exists():
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
+    flags = RESUME_APP + ["--measure", "--backend", "cuda", "--trials", "6",
+                          "--init", "3", "--db", str(RESUME_DB)]
+    reports, at_payload = [], []
+    codesign, save_payload = tuner.codesign, CheckpointManager.save_payload
+
+    def spy(*args, **kwargs):
+        reports.append(codesign(*args, **kwargs))
+        return reports[-1]
+
+    def spy_save(self, step, obj):
+        # every kernel's launches when this round's payload was written
+        at_payload.append({k.__name__: k.launches for k in KERNELS})
+        return save_payload(self, step, obj)
+
+    tuner.codesign, CheckpointManager.save_payload = spy, spy_save
+    try:
+        runs = []
+        for extra in (["--checkpoint-dir", str(ck)], ["--resume", str(ck)]):
+            print("$ python -m repro_torch.tuner " + " ".join(flags + extra),
+                  flush=True)
+            _read_launches(reset=True)
+            require(tuner.main(flags + extra) == 0, "the tuner failed")
+            runs.append(_read_launches())
+            if extra[0] == "--checkpoint-dir":
+                steps = CheckpointManager(ck).payload_steps()
+                require(steps == [1, 2], f"payload steps {steps}, not [1, 2]")
+                (ck / "state-000000000002.pkl").unlink()
+    finally:
+        tuner.codesign, CheckpointManager.save_payload = codesign, save_payload
+    first, resumed = reports
+    # the DOT round's launches in the first run: after its GEMM payload
+    dot_round = {k: runs[0][k] - at_payload[0][k] for k in runs[0]}
+    print(f"  first run launches {runs[0]} (GEMM round {at_payload[0]}, "
+          f"DOT round {dot_round}); resumed run {runs[1]}")
+    for name in ("GEMM", "DOT"):
+        for label, rep in (("first", first), ("resumed", resumed)):
+            summ = rep.measured[name]
+            print(f"  {label} {name}: best measured total "
+                  f"{summ['best_measured_total_s'] * 1e3:.4f} ms over "
+                  f"{summ['measured']} points")
+    require(runs[1] == dot_round and 0 < runs[1]["gemm"] < runs[0]["gemm"],
+            f"the resumed run launched {runs[1]}, not the DOT round's "
+            f"{dot_round}: the GEMM round was not restored")
+    require(resumed.measured["GEMM"] == first.measured["GEMM"],
+            "the restored GEMM measured summary differs")
+    # the analytical search is deterministic: the restored GEMM round and
+    # the re-run DOT round explored the first run's points exactly
+    for name in ("GEMM", "DOT"):
+        a, b = first.per_intrinsic[name], resumed.per_intrinsic[name]
+        require([c.encode() for c in a.configs] ==
+                [c.encode() for c in b.configs] and np.array_equal(a.ys, b.ys),
+                f"the resumed {name} round explored other points")
+    # each round commits the best measured of its top-k feasible candidates
+    # (analytical order); the DOT round's were timed again, and candidates
+    # that run one kernel geometry rank by host noise, so the commit must
+    # be one of that round's candidates, not the first run's own pick
+    sol = resumed.solution
+    res = resumed.per_intrinsic[sol.intrinsic]
+    order = np.argsort(res.ys[:, 0])[:3]
+    require(sol.hw.encode() in [res.configs[i].encode() for i in order],
+            f"the resumed run committed {sol.describe()}, not one of its "
+            f"round's candidates")
+    same = (sol.intrinsic, sol.hw.encode(), sorted(sol.schedules.items())) \
+        == (first.solution.intrinsic, first.solution.hw.encode(),
+            sorted(first.solution.schedules.items()))
+    print(f"  both runs explored the same points; resumed commit "
+          f"{sol.describe()}; the same as the first run's: {same}")
+
+
+def run_training(torch) -> None:
+    t0 = time.perf_counter()
+    check_attention_vjp(torch)
+    check_train_step_vs_cpu(torch)
+    run_full_width_training(torch)
+    run_train_cli(torch)
+    run_codesign_resume(torch)
+    print(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

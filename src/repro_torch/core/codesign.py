@@ -17,6 +17,7 @@ Baselines implemented alongside (paper §VII-D/E):
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -225,15 +226,18 @@ def codesign(workloads: list[TensorExpr], *, intrinsics: list[str] = None,
     newly retry-exhausted failures join the quarantine on persist.
 
     The software DSE's DQNs run on ``device`` (the card by default; asking
-    for it where there is none raises).  Checkpoint/resume
-    (``checkpoint_dir``, ``resume_from``) is not ported yet and raises
-    :class:`NotImplementedError`.
+    for it where there is none raises).
+
+    With ``checkpoint_dir``, one payload checkpoint is written per
+    completed intrinsic (``ft.CheckpointManager.save_payload``); with
+    ``resume_from``, the newest clean payload of a run with the same
+    signature (workloads and every search parameter) is restored and its
+    completed intrinsics are skipped, so a killed run resumes to the same
+    committed solution (bit for bit where the flow is analytical; with
+    ``measure=True`` a round that runs again times its kernels again).  A
+    foreign checkpoint warns and starts fresh, as does an empty directory
+    (silently).
     """
-    if checkpoint_dir is not None or resume_from is not None:
-        raise NotImplementedError(
-            "codesign checkpoint/resume is not ported to repro_torch yet (it "
-            "waits for the port of ft/checkpoint.py); run without "
-            "checkpoint_dir/resume_from")
     resolve_device(device)
     with obs.span("codesign.run",
                   {"workloads": [w.name for w in workloads],
@@ -246,14 +250,35 @@ def codesign(workloads: list[TensorExpr], *, intrinsics: list[str] = None,
             sw_budget=sw_budget, space_axes=space_axes, cache=cache,
             measure=measure, measure_backend=measure_backend,
             measure_top_k=measure_top_k, measure_opts=measure_opts,
-            db_path=db_path, app=app, device=device)
+            db_path=db_path, app=app, checkpoint_dir=checkpoint_dir,
+            resume_from=resume_from, device=device)
+
+
+def _codesign_signature(workloads, intrinsics, constraints, target, n_trials,
+                        n_init, seed, q, max_dse_extensions, engine,
+                        sw_budget, space_axes, measure, measure_backend,
+                        measure_top_k) -> tuple:
+    """What makes two codesign invocations "the same run" for resume: the
+    workload identities and every parameter that steers the search.  A
+    checkpoint whose signature differs must not be resumed (it would splice
+    state from a different trajectory into this one)."""
+    from .cost_model import _fingerprint
+
+    return (tuple(_fingerprint(w) for w in workloads),
+            tuple(i.upper() for i in intrinsics),
+            (constraints.latency_s, constraints.power_w,
+             constraints.area_um2),
+            target, n_trials, n_init, seed, q, max_dse_extensions, engine,
+            sw_budget, repr(sorted((space_axes or {}).items())),
+            measure, measure_backend, measure_top_k)
 
 
 def _codesign_body(workloads: list[TensorExpr], *, intrinsics, constraints,
                    target, n_trials, n_init, seed, q, max_dse_extensions,
                    engine, sw_budget, space_axes, cache, measure,
                    measure_backend, measure_top_k, measure_opts, db_path,
-                   app, device) -> CodesignReport:
+                   app, checkpoint_dir, resume_from, device
+                   ) -> CodesignReport:
     from .cost_model import EvalCache
 
     intrinsics = intrinsics or ["GEMM", "GEMV", "DOT", "CONV2D"]
@@ -282,8 +307,41 @@ def _codesign_body(workloads: list[TensorExpr], *, intrinsics, constraints,
     measure_points: list = []   # (workload, rep, MeasureResult) for the DB
     measure_failures: list = []  # failure dicts for the DB's diagnostics
 
+    # periodic checkpoint + resume (DESIGN.md §14): one payload checkpoint
+    # per completed intrinsic; resume restores the newest clean one
+    sig = _codesign_signature(workloads, intrinsics, constraints, target,
+                              n_trials, n_init, seed, q, max_dse_extensions,
+                              engine, sw_budget, space_axes, measure,
+                              measure_backend, measure_top_k)
+    completed: set[str] = set()
+    ckpt = None
+    if checkpoint_dir is not None:
+        from repro_torch.ft import CheckpointManager
+        ckpt = CheckpointManager(checkpoint_dir, keep=8)
+    if resume_from is not None:
+        from repro_torch.ft import CheckpointManager
+        state = CheckpointManager(resume_from, keep=8).restore_payload()
+        if state is None:
+            pass   # nothing restorable: start fresh
+        elif state.get("signature") != sig:
+            warnings.warn("codesign resume: checkpoint signature does not "
+                          "match this invocation; starting fresh",
+                          stacklevel=3)
+        else:
+            completed = set(state["done"])
+            per_intrinsic.update(state["per_intrinsic"])
+            evals = state["evals"]
+            best, best_rank = state["best"], state["best_rank"]
+            measured_summary.update(state["measured_summary"])
+            calib_samples.extend(state["calib_samples"])
+            measure_points.extend(state["measure_points"])
+            measure_failures.extend(state["measure_failures"])
+            cache._data.update(state["cache_data"])
+
     for intrinsic in intrinsics:
         intrinsic = intrinsic.upper()
+        if intrinsic in completed:   # resumed past this one
+            continue
         # the intrinsic must cover every workload of the application
         if not all((w.name, intrinsic) in partition for w in workloads):
             continue
@@ -346,6 +404,19 @@ def _codesign_body(workloads: list[TensorExpr], *, intrinsics, constraints,
                 if sol is not None and (best is None or rank < best_rank):
                     best, best_rank = sol, rank
 
+        completed.add(intrinsic)
+        if ckpt is not None:
+            # everything a resumed run needs to continue to a bit-identical
+            # committed solution, pickled atomically per intrinsic round
+            ckpt.save_payload(len(completed), {
+                "signature": sig, "done": sorted(completed),
+                "per_intrinsic": per_intrinsic, "evals": evals,
+                "best": best, "best_rank": best_rank,
+                "measured_summary": measured_summary,
+                "calib_samples": calib_samples,
+                "measure_points": measure_points,
+                "measure_failures": measure_failures,
+                "cache_data": dict(cache._data)})
 
     calibration = None
     saved_db = None

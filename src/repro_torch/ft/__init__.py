@@ -1,11 +1,9 @@
-"""Fault tolerance: seeded per-site fault injection (``inject``) and the
-serving engines' no-progress watchdog (``watchdog``).
-
-Checkpoint/resume (the reference's ``CheckpointManager``) is not ported
-yet; the co-design driver refuses ``checkpoint_dir``/``resume_from``.
-"""
+"""Fault tolerance (DESIGN.md §14): atomic checkpointing with
+corrupt-safe restore (``CheckpointManager``), the heartbeat and no-progress
+watchdogs, and the seeded fault-injection harness (``inject``)."""
 
 from . import inject
-from .watchdog import ProgressWatchdog
+from .checkpoint import CheckpointManager
+from .watchdog import ProgressWatchdog, Watchdog
 
-__all__ = ["ProgressWatchdog", "inject"]
+__all__ = ["CheckpointManager", "ProgressWatchdog", "Watchdog", "inject"]

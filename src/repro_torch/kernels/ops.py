@@ -4,7 +4,9 @@ recurrences (RWKV-6, Mamba-2).
 Every op takes ``implementation``: 'cuda' (the hand-written kernel; CUDA
 tensors only) or 'torch' (the plain PyTorch version; CPU tensors only).  A
 tensor on the wrong device raises: dispatch never moves data and never
-falls back from one implementation to the other.
+falls back from one implementation to the other.  The kernels have no
+backward, so 'cuda' attention and recurrences raise under autograd (an
+input that requires grad, grad mode on); training runs ``kernels.plain``.
 
 Block shapes left unspecified are resolved through a three-level fallback:
 the measured tuning database (``tuner/db.py``) for this exact (op, shape,
@@ -58,6 +60,18 @@ def _check(implementation: str, *tensors: torch.Tensor) -> bool:
             raise ValueError(f"implementation={implementation!r} runs on "
                              f"{want} tensors, got one on {t.device}")
     return implementation == "cuda"
+
+
+def _no_grad_through_kernel(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would have to differentiate a hand-written
+    kernel: none has a backward (nor has its Pallas original), so training
+    runs the plain versions, never a silent switch to them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward: run a model under autograd "
+            f"with impl=kernels.plain (the reference's 'xla' training "
+            f"implementation; launch/steps.py's default), or run the kernel "
+            f"under torch.no_grad()")
 
 
 def set_tuning_db(path) -> None:
@@ -215,6 +229,8 @@ def attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     version walks 256-key chunks, as the reference's 'xla' implementation
     does."""
     kw = dict(causal=causal, softcap=softcap, window=window, scale=scale)
+    if implementation == "cuda":
+        _no_grad_through_kernel("flash_attention", q, k, v)
     if not _check(implementation, q, k, v):
         return xla_attention.attention(q, k, v, **kw)
     return _flash.flash_attention(q, k, v, **kw)
@@ -226,6 +242,8 @@ def rwkv6(r, k, v, w, u, state=None, *, implementation: str = "cuda"):
     float32), any T >= 1.  'cuda' runs the kernel (chunks of 16), 'torch'
     the plain chunked version (chunks of 32); neither chunk is a knob."""
     ts = (r, k, v, w, u) + (() if state is None else (state,))
+    if implementation == "cuda":
+        _no_grad_through_kernel("rwkv6", *ts)
     if not _check(implementation, *ts):
         return xla_linear.rwkv6(r, k, v, w, u, state)
     return _rwkv6.rwkv6(r, k, v, w, u, state)
@@ -238,6 +256,8 @@ def mamba2(x, a, b, c, state=None, *, implementation: str = "cuda"):
     (chunks of 64), 'torch' the plain chunked version (chunks of 128);
     neither chunk is a knob."""
     ts = (x, a, b, c) + (() if state is None else (state,))
+    if implementation == "cuda":
+        _no_grad_through_kernel("mamba2", *ts)
     if not _check(implementation, *ts):
         return xla_linear.mamba2(x, a, b, c, state)
     return _mamba2.mamba2(x, a, b, c, state)

@@ -1,15 +1,92 @@
-"""Step builders: the prefill step (both forms) and the decode (serve)
-step, shared by the server and ``chip_smoke.py``.
+"""Step functions: the train step, the prefill step (both forms) and the
+decode (serve) step, shared by the trainer, the server and
+``chip_smoke.py``.
 
-Port of ``repro/launch/steps.py``.  The training step, its loss and
-``cross_entropy`` come with the training slice (ROADMAP A.7).
+Port of ``repro/launch/steps.py``.  The train step runs eagerly (the
+reference jits it and donates its buffers; here the optimizer updates the
+params in place).  It trains with ``impl=kernels.plain`` by default, the
+reference's ``impl="xla"``: the plain versions under autograd, attention
+through its custom VJP.  The hand-written kernels have no backward, and a
+model run with ``impl="cuda"`` under autograd raises.
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
+from repro_torch.kernels import plain
 from repro_torch.models import family_module
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.tree import leaves, tree_map
+from repro_torch.optim import AdamW, ef_compress
+
+Params = Any
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in float32; padded-vocab rows arrive already
+    masked to -1e30 by unembed, so logsumexp ignores them."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def model_inputs(batch: dict, cfg: ModelConfig) -> dict:
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def make_loss_fn(cfg: ModelConfig, *, tp: int = 1, impl=plain):
+    mod = family_module(cfg)
+
+    def loss_fn(params, batch):
+        logits = mod.forward(params, cfg, model_inputs(batch, cfg),
+                             tp=tp, impl=impl)
+        labels = batch["labels"]
+        if cfg.vis_tokens:           # loss on the text tail only
+            logits = logits[:, cfg.vis_tokens:]
+        return cross_entropy(logits, labels)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params: Params, batch: dict
+                   ) -> tuple[torch.Tensor, Params]:
+    """(loss, grads) of ``loss_fn(params, batch)``, the grads a tree like
+    ``params``, from ``torch.autograd.grad`` over detached aliases of the
+    param leaves: no ``.grad`` and no ``requires_grad`` is left on the
+    params.  A leaf the loss does not read (hubert's embedding table) gets
+    zeros, as in ``jax.value_and_grad``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, list(leaves(live)),
+                                    allow_unused=True, materialize_grads=True)
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, tp: int = 1,
+                    impl=plain, ef_state: Params | None = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``: :func:`value_and_grad`, then the optimizer
+    updates the params in place.  With ``ef_state``
+    (``optim.ef_init(params)``) the grads are int8-compressed with error
+    feedback before the update and the residual is carried in
+    ``ef_state``, in place."""
+    loss_fn = make_loss_fn(cfg, tp=tp, impl=impl)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        if ef_state is not None:
+            grads, new_ef = ef_compress(grads, ef_state)
+            for e, n in zip(leaves(ef_state), leaves(new_ef)):
+                e.copy_(n)
+        params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda",

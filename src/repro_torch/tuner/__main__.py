@@ -85,9 +85,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="also save the full solution (schedules included) "
                          "to this registry path")
     ap.add_argument("--checkpoint-dir", type=Path, default=None,
-                    help="not ported yet: raises NotImplementedError")
+                    help="checkpoint the co-design round state here after "
+                         "every intrinsic (DESIGN.md §14)")
     ap.add_argument("--resume", type=Path, default=None,
-                    help="not ported yet: raises NotImplementedError")
+                    help="resume from the newest clean checkpoint in this "
+                         "directory (a foreign or empty one starts fresh)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny GEMM preset; exit non-zero unless a "
                          "calibrated model is produced (CI gate)")

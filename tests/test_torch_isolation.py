@@ -1,6 +1,7 @@
-"""The port (``repro_torch``), ``chip_smoke.py`` and
-``examples/quickstart_torch.py`` stand alone: they import neither JAX nor
-anything of the reference package ``repro``.
+"""The port (``repro_torch``), ``chip_smoke.py``,
+``examples/quickstart_torch.py`` and ``examples/train_lm_torch.py`` stand
+alone: they import neither JAX nor anything of the reference package
+``repro``, nor ``ml_dtypes`` (the card's machine has none).
 
 Checked twice: dynamically, by importing every port module in a fresh
 interpreter where ``jax`` is blocked and a meta-path hook refuses
@@ -17,6 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+TRAIN_EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
 
 
 def _port_modules() -> list[str]:
@@ -33,6 +35,7 @@ def _port_modules() -> list[str]:
 _PROBE = r"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["ml_dtypes"] = None    # nor `import ml_dtypes`
 
 class RefuseReference(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -59,7 +62,10 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.kernels.xla_linear", "repro_torch.core.nsga2",
             "repro_torch.core.random_search", "repro_torch.obs.__main__",
             "repro_torch.launch.paging",
-            "repro_torch.analysis.kv_sanitizer"} <= set(mods)
+            "repro_torch.analysis.kv_sanitizer", "repro_torch.launch.train",
+            "repro_torch.ft.checkpoint", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression",
+            "repro_torch.data.pipeline"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
@@ -79,8 +85,8 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_file_of_the_port_or_the_smoke_names_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE, QUICKSTART]
-    assert SMOKE.exists() and QUICKSTART.exists()
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, QUICKSTART, TRAIN_EXAMPLE]
+    assert all(f.exists() for f in files)
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
-           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert bad == []

@@ -162,11 +162,19 @@ def test_codesign_commits_the_live_reference_solution(monkeypatch):
 
 
 def test_codesign_refuses_checkpointing_and_a_missing_card(tmp_path):
+    """Checkpointing is ported: ``checkpoint_dir`` writes one payload per
+    intrinsic and ``resume_from`` it commits the same solution (the kill
+    and resume cases are in ``tests/test_torch_checkpoint.py``); a missing
+    card still refuses the default device."""
+    from repro_torch.ft import CheckpointManager
+
     wl = W.table1_gemm()[:1]
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        codesign(wl, device="cpu", checkpoint_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        codesign(wl, device="cpu", resume_from=tmp_path)
+    kw = dict(intrinsics=["GEMM"], n_trials=3, n_init=2, device="cpu")
+    full = codesign(wl, checkpoint_dir=tmp_path, **kw).solution
+    assert CheckpointManager(tmp_path).payload_steps() == [1]
+    resumed = codesign(wl, resume_from=tmp_path, **kw).solution
+    assert (resumed.hw, resumed.latency_s, sorted(resumed.schedules)) == \
+        (full.hw, full.latency_s, sorted(full.schedules))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             codesign(wl)                          # default device: the card
@@ -184,10 +192,19 @@ def test_cli_smoke_torch_backend_writes_db(tmp_path, capsys):
     assert "default" in db.apps
 
 
-def test_cli_checkpoint_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        main(["--workload", "gemm:32,32,32", "--backend", "torch",
-              "--checkpoint-dir", str(tmp_path)])
+def test_cli_checkpoint_flags_raise(tmp_path, capsys):
+    """The flags work now: ``--checkpoint-dir`` writes a payload per
+    intrinsic, and ``--resume`` from it commits the same solution."""
+    from repro_torch.ft import CheckpointManager
+
+    args = ["--workload", "gemm:32,32,32", "--backend", "torch",
+            "--intrinsics", "GEMM,DOT", "--trials", "3", "--init", "2"]
+    assert main(args + ["--checkpoint-dir", str(tmp_path)]) == 0
+    first = capsys.readouterr().out
+    assert CheckpointManager(tmp_path).payload_steps() == [1, 2]
+    assert main(args + ["--resume", str(tmp_path)]) == 0
+    solution = [ln for ln in first.splitlines() if ln.startswith("solution")]
+    assert solution and solution[0] in capsys.readouterr().out
 
 
 def test_quickstart_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
