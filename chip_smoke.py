@@ -142,7 +142,28 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      explores the same points in both rounds as the first run, and
      commits one of its round's measured candidates (which one is host
      timing where candidates share a kernel geometry; printed beside the
-     first run's).
+     first run's).  (b) also requires the same ``value_and_grad`` twice on
+     the card to give the same bits in every leaf, and (d) the crashed and
+     resumed runs (plain and ``--grad-compression``) to end on the
+     uninterrupted runs' step-11 checkpoint bytes;
+ 20. distributed on the one card: (a) a one-rank NCCL mesh (data=1,
+     model=1) serving phase 17's zamba2-2.7b requests on the
+     ``PagedServeEngine(mesh=...)``, bit for bit the tokens without a mesh;
+     (b) two ranks sharing the card (``chip_smoke.py --phase20-rank``,
+     gloo: NCCL refuses two ranks on one device) at data=1, model=2:
+     qwen3-8b's forward over phase 7's 1 x 4096 tokens through
+     ``make_prefill_step(mesh=...)`` (H 16 / KV 4 a rank, 36
+     ``flash_attention`` launches a rank on the tensor-core route, each
+     call checked against its plain version, logits against phase 7's by
+     cosine), and zamba2-2.7b in float32 on the paged engine (40 SSD heads a
+     rank), token for token the single-device engine's, its ``mamba2``
+     launches counted and each call checked; (c) a reduced zamba2-2.7b
+     data-parallel ZeRO-1 step, each rank taking half the global batch,
+     against one process on the whole batch; (d) that state checkpointed
+     from the two ranks and restored onto (a)'s mesh as DTensors, every
+     leaf equal.  Tokens/s and the collectives' calls and seconds are
+     printed beside the mesh-less runs: two ranks on one card measure the
+     plumbing, not the speed of tensor parallelism.
 
 Each model is freed before the next one is drawn.
 
@@ -324,6 +345,23 @@ TRAIN_PEAK_LIMIT = 75e9
 RESUME_APP = ["--app", "resume", "--intrinsics", "GEMM,DOT", "--workload",
               "gemm:1024,1024,1024"]
 RESUME_DB = ROOT / "artifacts" / "chip_smoke" / "resume_tuning_db.json"
+
+# phase 20: phase 7's qwen3-8b logits, kept for the two-rank forward
+QWEN_LOGITS = ROOT / "artifacts" / "chip_smoke" / "qwen3_logits.pt"
+DIST_DIR = ROOT / "artifacts" / "chip_smoke" / "dist"
+# the two-rank (model=2) qwen3-8b forward against phase 7's single-device
+# kernel forward, bfloat16: least cosine over positions, just below the
+# first reading (PERF.md section 2)
+TP_FWD_COSINE = 0.9995
+# (c) the two-rank data-parallel step against one process on the whole
+# batch, reduced zamba2-2.7b in float32: the loss's relative difference,
+# each grad leaf and each ZeRO-1 moment leaf against its largest |value|
+# (the same float32 math, summed in two halves: TRAIN_CPU_TOL's rounding
+# class); the updated params within half an update (lr / 2) of one
+# process's, since Adam scales each element's grad to about one update
+# and an element whose grad is at its rounding noise moves by up to that
+DP_TOL = dict(loss=1e-5, grad=1e-4, param_updates=0.5)
+DP_TRAIN = dict(arch="zamba2-2.7b", seq=64, batch=4, lr=1e-2)
 LIN_META = {
     "rwkv6": ("src/repro_torch/csrc/rwkv6.cu", "src/repro/kernels/rwkv6.py:95"),
     "mamba2": ("src/repro_torch/csrc/mamba2.cu",
@@ -348,6 +386,8 @@ def main() -> int:
     require((SRC / "repro_torch" / "csrc").is_dir(),
             f"no checkout around {__file__}: src/repro_torch is missing")
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--phase20-rank"]:
+        return phase20_rank()
     import torch
     require(torch.cuda.is_available(), "no CUDA device: this smoke runs on the "
             "card only")
@@ -444,7 +484,7 @@ def main() -> int:
     check_flash(torch)
 
     bf16_peak = BF16_PEAK["pcie" if "PCIe" in name else "sxm"]
-    fwd_launches, attn_launches = {}, {}
+    fwd_launches, attn_launches, fwd_seconds = {}, {}, {}
     for first, arch in zip((7, 11, 13), ARCHS):
         if arch == "rwkv6-3b":
             phase("10. rwkv6 and mamba2 against their plain versions")
@@ -457,6 +497,7 @@ def main() -> int:
         phase(f"{first + 1}. serving: the dense ServeEngine on {arch}")
         run_serving(torch, model)
         attn_launches[arch] = model["launches"]["flash_attention"]
+        fwd_seconds[arch] = model["forward_s"]
         if arch == "qwen3-8b":
             phase("9. flash attention timed at the forwards' shapes")
             flash_rows = {}
@@ -506,7 +547,7 @@ def main() -> int:
     phase("17. paged serving: the PagedServeEngine on zamba2-2.7b")
     paged = run_paged(torch, "zamba2-2.7b", pressure=True)
     mamba_row = next(r_ for r_ in rows if r_["name"] == "mamba2")
-    mamba_row["paged_launches"] = paged["mamba2"]
+    mamba_row["paged_launches"] = paged["launches"]["mamba2"]
     torch.cuda.empty_cache()
 
     phase("18. MoE: one layer on the card against the CPU, then "
@@ -518,8 +559,16 @@ def main() -> int:
     phase("19. training and resume: the attention VJP, a train step card vs "
           "CPU, zamba2-2.7b at full width, the train CLI, co-design resume")
     run_training(torch)
+    torch.cuda.empty_cache()
 
+    phase("20. distributed on the one card: a one-rank mesh, two ranks "
+          "(tensor-parallel serving and forward, data-parallel training), "
+          "elastic restore")
     flash_row = next(r_ for r_ in rows if r_["name"] == "flash_attention")
+    tp = run_distributed(torch, paged, fwd_seconds)
+    flash_row["tp2_launches_per_rank"] = tp["flash_attention"]
+    mamba_row["tp2_paged_launches_per_rank"] = tp["mamba2"]
+
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
     require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
     print(json.dumps({"kernels": rows}))
@@ -1170,6 +1219,8 @@ def run_forward(torch, arch: str) -> dict:
         routes = dict(flash_attention.route_launches)
         require(logits.shape == (1, FWD_TOKENS, cfg.vocab),
                 f"logits shape {tuple(logits.shape)}")
+        if arch == "qwen3-8b":     # phase 20 (b) holds its TP forward to it
+            torch.save(logits.cpu(), QWEN_LOGITS)
         require(launches == _launches(cfg, "forward"),
                 f"one forward launched {launches}, not "
                 f"{_launches(cfg, 'forward')}")
@@ -1558,7 +1609,8 @@ def run_paged(torch, arch: str, pressure: bool = False) -> dict[str, int]:
         print(f"  the page-pressure run's tokens equal the ample run's "
               f"({tstats['preemptions']} preemptions, sanitizer on)")
     del params
-    return launches
+    return {"launches": launches, "tokens": out,
+            "chunks_multi": multi}
 
 
 def check_moe(torch) -> None:
@@ -2009,6 +2061,19 @@ def check_train_step_vs_cpu(torch) -> None:
             params = params_from_numpy(host, device=dev)
             b = to_device(batch, dev, torch.float32)
             loss, grads = value_and_grad(make_loss_fn(cfg), params, b)
+            if dev == "cuda":
+                # the same call again: the same bits in every leaf (the
+                # embedding's backward sums repeated ids in a fixed order)
+                loss2, grads2 = value_and_grad(make_loss_fn(cfg), params, b)
+                moved = [i for i, (a, b_) in enumerate(
+                    zip(leaves(grads), leaves(grads2)))
+                    if not torch.equal(a, b_)]
+                require(torch.equal(loss, loss2) and not moved,
+                        f"{arch}: value_and_grad twice on the card moved "
+                        f"the loss or grad leaves {moved}")
+                print(f"  {cfg.name}: value_and_grad twice on the card: the "
+                      f"same bits in the loss and all "
+                      f"{len(list(leaves(grads)))} grad leaves")
             opt = AdamW(lr=cosine_schedule(3e-3, warmup=5, total=8))
             params, _, m = make_train_step(cfg, opt)(params, opt.init(params),
                                                      b)
@@ -2106,9 +2171,18 @@ def run_full_width_training(torch) -> dict:
     return {"losses": losses, "ms": [x * 1e3 for x in times], "peak": peak}
 
 
+def _ckpt_bytes(ckdir: Path, step: int) -> dict[str, bytes]:
+    """{leaf key: its .npy bytes} of the checkpoint at ``step``."""
+    d = ckdir / f"step-{step:012d}"
+    manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+    return {k: (d / e["file"]).read_bytes() for k, e in manifest.items()}
+
+
 def run_train_cli(torch) -> None:
     """Phase 19 (d): the train CLI on the card (reduced configs): failure
-    injection then resume from step 4, and grad compression."""
+    injection then resume from step 4, ending on the uninterrupted run's
+    checkpoint bits with and without grad compression; and grad
+    compression on granite-moe."""
     ck = ROOT / "artifacts" / "chip_smoke" / "train_ckpt"
     if ck.exists():
         shutil.rmtree(ck)
@@ -2128,19 +2202,41 @@ def run_train_cli(torch) -> None:
             print("  " + line)
         return proc.returncode, out, err
 
-    # the failing run and the compressed one are independent: together
-    inject = start(common + ["--inject-failure-at", "6"])
+    comp = [*common[:-1], str(ck / "ef"), "--grad-compression"]
+    whole = [*common[:-1], str(ck / "whole")]
+    whole_comp = [*common[:-1], str(ck / "whole_ef"), "--grad-compression"]
+    # the failing runs, the uninterrupted ones and the compressed granite
+    # run are independent: together
+    inject = [start(a + ["--inject-failure-at", "6"]) for a in (common,
+                                                                 comp)]
+    others = [start(a) for a in (whole, whole_comp)]
     moe = start(["--arch", "granite-moe-3b-a800m", "--smoke", "--steps", "4",
                  "--checkpoint-dir", str(ck / "moe"), "--grad-compression"])
-    rc, out, err = finish(inject)
-    require(rc != 0 and "injected failure at step 6" in out + err,
-            f"the injected run exited {rc} without its failure: {err[-2000:]}")
-    rc, out, err = finish(moe)
-    require(rc == 0, f"grad compression exited {rc}: {err[-2000:]}")
-    rc, out, err = finish(start(common))
-    require(rc == 0, f"the resumed run exited {rc}: {err[-2000:]}")
-    require("resumed from checkpoint step 4" in out and "step   11" in out,
-            "the rerun did not resume from step 4 and reach step 11")
+    for proc in inject:
+        rc, out, err = finish(proc)
+        require(rc != 0 and "injected failure at step 6" in out + err,
+                f"the injected run exited {rc} without its failure: "
+                f"{err[-2000:]}")
+    for proc in others + [moe]:
+        rc, out, err = finish(proc)
+        require(rc == 0, f"a train run exited {rc}: {err[-2000:]}")
+    for proc in [start(common), start(comp)]:
+        rc, out, err = finish(proc)
+        require(rc == 0, f"the resumed run exited {rc}: {err[-2000:]}")
+        require("resumed from checkpoint step 4" in out and "step   11" in out,
+                "the rerun did not resume from step 4 and reach step 11")
+    name = "qwen3-8b-smoke"
+    for resumed, uninterrupted, what in ((ck, ck / "whole", "plain"),
+                                         (ck / "ef", ck / "whole_ef",
+                                          "--grad-compression")):
+        got = _ckpt_bytes(resumed / name, 11)
+        want = _ckpt_bytes(uninterrupted / name, 11)
+        moved = sorted(k for k in want if got.get(k) != want[k])
+        require(set(got) == set(want) and not moved,
+                f"{what}: the resumed run's step-11 checkpoint differs from "
+                f"the uninterrupted run's in {moved[:5]}")
+        print(f"  {what}: the crashed-and-resumed run's step-11 checkpoint "
+              f"has the uninterrupted run's bytes in all {len(want)} leaves")
 
 
 def run_codesign_resume(torch) -> None:
@@ -2233,6 +2329,396 @@ def run_training(torch) -> None:
     run_train_cli(torch)
     run_codesign_resume(torch)
     print(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 20: distributed on the one card ------------------------------------
+
+def _zamba_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(0)       # phase 17's requests
+    lo, hi = SERVE["prompt"]
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1)))
+            for _ in range(SERVE["n"])]
+
+
+def _serve_paged(torch, cfg, params, mesh=None, impl="cuda") -> dict:
+    """Phase 17's ample paged run (no trace) on ``params``: the tokens,
+    tokens/s, launches and the collectives' calls and seconds."""
+    from repro_torch.distributed import local
+    from repro_torch.launch.serve import Request, serve_requests
+
+    reqs = [Request(i, p, SERVE["max_new"])
+            for i, p in enumerate(_zamba_prompts(cfg))]
+    _read_launches(reset=True)
+    local.STATS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, stats = serve_requests(
+        cfg, params, reqs, slots=SERVE["slots"], max_seq=SERVE["max_seq"],
+        impl=impl, paged=True, mesh=mesh, **PAGED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require([r.status for r in done] == ["OK"] * SERVE["n"],
+            f"statuses {stats['status_counts']}")
+    return {"tokens": {r.rid: list(r.out) for r in done},
+            "tok_s": stats["generated"] / dt, "seconds": dt,
+            "launches": _read_launches(),
+            "collectives": {k: list(v) for k, v in local.STATS.items()}}
+
+
+def _collectives(stats: dict) -> str:
+    return ", ".join(f"{k} {n} calls {sec:.3f} s" for k, (n, sec) in
+                     sorted(stats.items())) or "none"
+
+
+def phase20_rank() -> int:
+    """One rank of phase 20 (b) and (c): ``chip_smoke.py --phase20-rank``,
+    two of them started by ``run_distributed`` on the one card.  Prints
+    its readings as one JSON object on its last line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda")
+    res = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    mesh = make_host_mesh(tp=2, device="cuda")
+    res["qwen3"] = _rank_qwen3(torch, mesh)
+    torch.cuda.empty_cache()
+    res["zamba2"] = _rank_zamba2(torch, mesh)
+    torch.cuda.empty_cache()
+    res["train"] = _rank_train(torch, make_host_mesh(tp=1, device="cuda"))
+    dist.destroy_process_group()
+    print(json.dumps(res))
+    return 0
+
+
+def _rank_qwen3(torch, mesh) -> dict:
+    """(b) qwen3-8b's full-sequence forward over phase 7's 1 x 4096 tokens
+    on a model=2 mesh: H 16 / KV 4 a rank."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import local
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.steps import make_prefill_step, shard_params
+    from repro_torch.models import family_module
+
+    cfg = get_config("qwen3-8b")
+    whole = family_module(cfg).init(cfg, seed=0, tp=2, device="cuda")
+    params = shard_params(cfg, whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(3)   # phase 7's
+    tokens = torch.randint(0, cfg.vocab, (1, FWD_TOKENS), generator=gen,
+                           device="cuda")
+    step = make_prefill_step(cfg, impl="cuda", mesh=mesh)
+    out = {"heads": params["layers"]["all"]["attn"]["wq"].shape[-1]
+           // cfg.head_dim,
+           "kv_heads": params["layers"]["all"]["attn"]["wk"].shape[-1]
+           // cfg.head_dim}
+    with torch.no_grad():
+        step(params, {"tokens": tokens[:, :256]})          # warm-up
+        torch.cuda.synchronize()
+        _read_launches(reset=True)
+        local.STATS.clear()
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = _read_launches()
+        out["routes"] = dict(flash_attention.route_launches)
+        out["collectives"] = {k: list(v) for k, v in local.STATS.items()}
+        checked = _CheckedOps(torch)
+        make_prefill_step(cfg, impl=checked, mesh=mesh)(
+            params, {"tokens": tokens})
+        out["checked"] = list(checked.worst["attention"])
+        if dist.get_rank() == 0:
+            cmp = _compare_logits(torch, logits, torch.load(QWEN_LOGITS)
+                                  .to("cuda"))
+            out["vs_single"] = {k: cmp[k] for k in (
+                "min_cosine", "argmax_agree", "max_abs_err",
+                "worst_position")}
+    return out
+
+
+def _rank_zamba2(torch, mesh) -> dict:
+    """(b) zamba2-2.7b in float32 on the paged engine at model=2 (40 SSD
+    heads, 16 attention heads a rank), phase 17's requests; rank 0 first
+    serves them on the whole params without a mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import family_module
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), dtype="float32")
+    whole = family_module(cfg).init(cfg, seed=0, tp=2, device="cuda")
+    out = {"single": None}
+    if dist.get_rank() == 0:
+        single = _serve_paged(torch, cfg, whole)
+        out["single"] = {k: single[k] for k in ("tokens", "tok_s",
+                                                 "launches")}
+    dist.barrier()
+    got = _serve_paged(torch, cfg, whole, mesh=mesh)
+    checked = _CheckedOps(torch)
+    again = _serve_paged(torch, cfg, whole, mesh=mesh, impl=checked)
+    out.update(tokens=got["tokens"], tok_s=got["tok_s"],
+               launches=got["launches"], collectives=got["collectives"],
+               checked_tokens=again["tokens"] == got["tokens"],
+               checked=list(checked.worst["mamba2"]))
+    return out
+
+
+def _rank_train(torch, mesh) -> dict:
+    """(c) a reduced zamba2-2.7b train step, float32, each rank taking half
+    the global batch, against one process on the whole batch; then (d)'s
+    save: the ZeRO-1 state checkpointed whole from the two ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import local
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.launch.steps import (make_loss_fn, make_train_step,
+                                          shard_params, value_and_grad)
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import family_module, reduced
+    from repro_torch.models.tree import leaves, tree_map
+    from repro_torch.optim import AdamW, OptState
+
+    t = DP_TRAIN
+    cfg = reduced(get_config(t["arch"]), dtype="float32")
+    mod = family_module(cfg)
+    specs, segs = mod.specs(cfg), mod.compute_segments(cfg, 1)
+    whole = mod.init(cfg, seed=0, device="cuda")
+    data = SyntheticLM(cfg.vocab, t["seq"], t["batch"], seed=0)
+    full = to_device(data.batch(0), "cuda", torch.float32)
+    mine = to_device(data.global_arrays(0, mesh), "cuda", torch.float32)
+    loss_fn = make_loss_fn(cfg)
+    l0, g0 = value_and_grad(loss_fn, whole, full)
+    ax = local.mesh_axis(mesh, "data")
+    local.STATS.clear()
+    t0 = time.perf_counter()
+    l1, g1 = value_and_grad(loss_fn, whole, mine)
+    l1 = local.all_reduce(l1, ax.group) / ax.size
+    g1 = tree_map(lambda g: local.all_reduce(g, ax.group) / ax.size, g1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    pa = tree_map(torch.clone, whole)
+    oa = AdamW(lr=t["lr"])
+    pa, sa, _ = make_train_step(cfg, oa)(pa, oa.init(pa), full)
+    ob = AdamW(lr=t["lr"]).shard(mesh, specs, segs)
+    pb = shard_params(cfg, tree_map(torch.clone, whole), mesh)
+    sb = ob.init(pb)
+    halves = sum(int(m.numel() * 2 == p.numel())
+                 for m, p in zip(leaves(sb.m), leaves(pb)))
+    pb, sb, mb = make_train_step(cfg, ob, mesh=mesh)(pb, sb, mine)
+    out = {"loss": float(l0), "loss_rel": float(abs(l1 - l0) / abs(l0)),
+           "grad": worst(g1, g0),
+           "params": max(float((x - y).abs().max())
+                         for x, y in zip(leaves(pb), leaves(pa))),
+           "m": worst(ob.gather_moments(sb.m), sa.m),
+           "v": worst(ob.gather_moments(sb.v), sa.v),
+           "halves": halves, "leaves": len(list(leaves(pb))),
+           "seconds": sec,
+           "collectives": {k: list(v) for k, v in local.STATS.items()}}
+    # (d): the two ranks' state saved whole (rank 0 writes), each rank's
+    # ZeRO-1 slices of m kept beside it for the one-rank restore
+    shapes = tree_map(lambda x: x.to("meta"), whole)
+    state = OptState(sb.step, local.full_params(ob.gather_moments(sb.m),
+                                                specs, mesh, shapes, segs),
+                     local.full_params(ob.gather_moments(sb.v), specs,
+                                       mesh, shapes, segs))
+    CheckpointManager(DIST_DIR / "ckpt").save(
+        1, (local.full_params(pb, specs, mesh, shapes, segs), state))
+    torch.save({"m": tree_map(lambda x: x.cpu(), sb.m),
+                "params": tree_map(lambda x: x.cpu(), pb)},
+               DIST_DIR / f"rank{dist.get_rank()}.pt")
+    return out
+
+
+def run_distributed(torch, paged17: dict, fwd_seconds: dict) -> dict:
+    """Phase 20: (a) a one-rank NCCL mesh, (b) and (c) two ranks on the
+    card (``phase20_rank``), (d) the two ranks' checkpoint restored onto
+    the one-rank mesh.  Returns each kernel's launches a rank at (b)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import local
+    from repro_torch.distributed.sharding import zero1_specs
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh, rank_json, run_ranks
+    from repro_torch.models import family_module, reduced
+    from repro_torch.optim import AdamW
+
+    t_all = time.perf_counter()
+    if DIST_DIR.exists():
+        shutil.rmtree(DIST_DIR)
+    DIST_DIR.mkdir(parents=True)
+    # (a) the one-rank mesh: NCCL, data=1, model=1
+    mesh1 = make_host_mesh(device="cuda")
+    print(f"(a) one-rank mesh {mesh1.mesh_dim_names} "
+          f"{tuple(mesh1.mesh.shape)}, backend {dist.get_backend()}")
+    require(dist.get_backend() == "nccl", "the one-rank mesh is not NCCL")
+    cfg = get_config("zamba2-2.7b")
+    params = family_module(cfg).init(cfg, seed=0, device="cuda")
+    bare = _serve_paged(torch, cfg, params)
+    meshed = _serve_paged(torch, cfg, params, mesh=mesh1)
+    del params
+    torch.cuda.empty_cache()
+    require(bare["tokens"] == paged17["tokens"],
+            "the mesh-less engine's tokens are not phase 17's")
+    require(meshed["tokens"] == bare["tokens"],
+            "the one-rank mesh changed a token")
+    require(meshed["launches"] == bare["launches"],
+            f"the one-rank mesh launched {meshed['launches']}, not "
+            f"{bare['launches']}")
+    print(f"  zamba2-2.7b paged, phase 17's requests: the one-rank mesh's "
+          f"tokens equal the engine's without a mesh (and phase 17's), "
+          f"bit for bit; {meshed['tok_s']:.2f} tokens/s on the mesh, "
+          f"{bare['tok_s']:.2f} without; collectives "
+          f"{_collectives(meshed['collectives'])}")
+
+    # (b), (c): two ranks on the one card
+    t0 = time.perf_counter()
+    procs = run_ranks([str(ROOT / "chip_smoke.py"), "--phase20-rank"], 2,
+                      DIST_DIR / "ranks", timeout=900)
+    for r, p in enumerate(procs):
+        for line in p.stderr.strip().splitlines()[-5:]:
+            print(f"  [rank {r}] {line}")
+        require(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                f"{p.stderr[-3000:]}")
+    ranks = [rank_json(p) for p in procs]
+    print(f"(b) two ranks on the card: {time.perf_counter() - t0:.1f} s "
+          f"for both processes, backend {ranks[0]['backend']} (NCCL refuses "
+          f"two ranks on one card), which took the CUDA tensors of every "
+          f"all-reduce, all-gather and broadcast as they are (no host "
+          f"staging)")
+    require(all(r["backend"] == "gloo" for r in ranks),
+            "two ranks on one card did not run gloo")
+    q0 = ranks[0]["qwen3"]
+    for r, res in enumerate(ranks):
+        q = res["qwen3"]
+        require((q["heads"], q["kv_heads"]) == (16, 4),
+                f"rank {r}: qwen3-8b ran {q['heads']}/{q['kv_heads']} heads")
+        require(q["launches"]["flash_attention"] == 36
+                and q["routes"]["tc"] == 36 and q["routes"]["simt"] == 0,
+                f"rank {r}: flash_attention {q['launches']} routes "
+                f"{q['routes']}, not 36 on the tensor-core route")
+        require(q["checked"][0] == 36, f"rank {r}: {q['checked'][0]} "
+                f"checked attention calls, not 36")
+        print(f"  rank {r}: qwen3-8b model=2 forward 1x{FWD_TOKENS} at H "
+              f"{q['heads']} / KV {q['kv_heads']}: {q['seconds']:.3f} s "
+              f"({FWD_TOKENS / q['seconds']:.0f} tokens/s; phase 7 single "
+              f"device {fwd_seconds['qwen3-8b']:.3f} s, "
+              f"{FWD_TOKENS / fwd_seconds['qwen3-8b']:.0f} tokens/s); "
+              f"launches {q['launches']}, routes {q['routes']}; 36 "
+              f"attention calls each within its bfloat16 tolerance of the "
+              f"plain version (max abs err {q['checked'][1]:.3g}); "
+              f"collectives {_collectives(q['collectives'])}")
+    v = q0["vs_single"]
+    print(f"  model=2 logits vs phase 7's single-device kernel forward: min "
+          f"cosine {v['min_cosine']:.6f} (at position {v['worst_position']})"
+          f", argmax agrees at {v['argmax_agree']:.4f}, max abs err "
+          f"{v['max_abs_err']:.4g}")
+    require(v["min_cosine"] >= TP_FWD_COSINE,
+            f"the model=2 forward drifts from the single-device one "
+            f"({v['min_cosine']:.6f} < {TP_FWD_COSINE})")
+
+    z0 = ranks[0]["zamba2"]
+    single = z0["single"]
+    zcfg = get_config("zamba2-2.7b")
+    multi = sum(min(PAGED["prefill_chunk"], len(p) - s_) > 1
+                for p in _zamba_prompts(zcfg)
+                for s_ in range(0, len(p), PAGED["prefill_chunk"]))
+    want = zcfg.n_layers * multi
+    for r, res in enumerate(ranks):
+        z = res["zamba2"]
+        require(z["tokens"] == single["tokens"],
+                f"rank {r}: the model=2 float32 tokens differ from the "
+                f"single-device engine's")
+        require(z["checked_tokens"], f"rank {r}: the checked run's tokens "
+                f"differ")
+        require(z["launches"]["mamba2"] == want and z["checked"][0] == want,
+                f"rank {r}: {z['launches']['mamba2']} mamba2 launches, "
+                f"{z['checked'][0]} checked, not {want}")
+        print(f"  rank {r}: zamba2-2.7b float32 paged at model=2 (40 SSD "
+              f"heads, 16 attention heads): {SERVE['n']} requests x "
+              f"{SERVE['max_new']} tokens, every token the single-device "
+              f"engine's; {z['tok_s']:.2f} tokens/s (single device "
+              f"{single['tok_s']:.2f}); mamba2 {z['launches']['mamba2']} "
+              f"launches ({zcfg.n_layers} layers x {multi} chunks), each "
+              f"within its float32 tolerance of the plain version in the "
+              f"checked run (max abs err {z['checked'][1]:.3g}); "
+              f"collectives {_collectives(z['collectives'])}")
+
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        print(f"(c) rank {r}: reduced {DP_TRAIN['arch']} float32, "
+              f"{DP_TRAIN['batch'] // 2} of {DP_TRAIN['batch']} rows x "
+              f"{DP_TRAIN['seq']} tokens a rank: loss {t['loss']:.6f}, rel "
+              f"diff {t['loss_rel']:.3g}; worst leaf / its max: grads "
+              f"{t['grad']:.3g}, ZeRO-1 step m {t['m']:.3g}, v "
+              f"{t['v']:.3g}; params max abs diff {t['params']:.3g} (lr "
+              f"{DP_TRAIN['lr']}); moments halved in "
+              f"{t['halves']} of {t['leaves']} leaves; grads + all-reduce "
+              f"{t['seconds'] * 1e3:.1f} ms, collectives "
+              f"{_collectives(t['collectives'])}")
+        require(t["loss_rel"] <= DP_TOL["loss"], "the DP loss drifts")
+        for k in ("grad", "m", "v"):
+            require(t[k] <= DP_TOL["grad"], f"the DP {k} drifts: {t[k]}")
+        require(t["params"] <= DP_TOL["param_updates"] * DP_TRAIN["lr"],
+                f"the DP step's params drift: {t['params']}")
+        require(t["halves"] > 0, "no moment is sharded over 'data'")
+
+    # (d) the two ranks' checkpoint onto the one-rank mesh
+    t0 = time.perf_counter()
+    cfg = reduced(get_config(DP_TRAIN["arch"]), dtype="float32")
+    mod = family_module(cfg)
+    specs = mod.specs(cfg)
+    like_p = mod.init(cfg, seed=0, device="cuda")
+    got_p, got_s = CheckpointManager(DIST_DIR / "ckpt").restore(
+        1, like=(like_p, AdamW().init(like_p)), mesh=mesh1,
+        specs=(zero1_specs(specs), AdamW.init_specs(specs)))
+    slices = [torch.load(DIST_DIR / f"rank{r}.pt") for r in range(2)]
+    n = 0
+
+    def same(restored, want):
+        nonlocal n
+        n += 1
+        whole = local.full_tensor(restored).cpu()
+        require(torch.equal(whole, want), "a restored leaf differs")
+
+    def walk(a, b, c=None):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], None if c is None else c[k])
+        elif c is None:
+            same(a, b)
+        else:       # ZeRO-1: the two ranks' slices along the cut dim
+            dim = next((i for i, (x, y) in enumerate(zip(b.shape, a.shape))
+                        if x != y), None)
+            same(a, b if dim is None else torch.cat([b, c], dim))
+    walk(got_p, slices[0]["params"])
+    walk(got_s.m, slices[0]["m"], slices[1]["m"])
+    print(f"(d) the two-rank checkpoint restored onto the one-rank mesh "
+          f"as DTensors: {n} leaves with the values the ranks held (the "
+          f"ZeRO-1 moments the two ranks' slices joined) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    QWEN_LOGITS.unlink(missing_ok=True)
+    dist.destroy_process_group()
+    print(f"  phase 20 took {time.perf_counter() - t_all:.1f} s")
+    return {"flash_attention": q0["launches"]["flash_attention"],
+            "mamba2": z0["launches"]["mamba2"]}
 
 
 if __name__ == "__main__":

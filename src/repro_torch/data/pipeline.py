@@ -7,8 +7,11 @@ reference's bit for bit):
     checkpoint;
   * background prefetch of the next batch while the step runs.
 
-The per-host sharded batch (``global_arrays``, ``make_global_batch``) needs
-a device mesh and is not ported yet (ROADMAP A.8).
+On a mesh, ``global_arrays`` gives each rank only its own rows of the
+global batch, made on that rank: the generator is advanced past the rows
+before them, so they are ``batch(step)``'s rows bit for bit, on any mesh.
+(The reference seeds each shard with its first row instead, so its global
+batch changes with the mesh.)
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from repro_torch.models.layers import deferred
+from repro_torch.distributed.sharding import BATCH_AXES, P
 
 
 @dataclass
@@ -30,23 +33,33 @@ class SyntheticLM:
     global_batch: int
     seed: int = 0
 
-    def _host_batch(self, step: int, lo: int, hi: int) -> dict[str, np.ndarray]:
+    def _rows(self, step: int, lo: int, n: int) -> dict[str, np.ndarray]:
+        """Rows ``lo .. lo + n`` of ``batch(step)``, drawing only those:
+        each row takes ``seq_len + 1`` doubles, one generator step each."""
         rng = np.random.default_rng(
-            np.random.SeedSequence([self.seed, step, lo]))
-        n = hi - lo
-        # zipf-like marginal over the vocabulary, cheap and deterministic
+            np.random.SeedSequence([self.seed, step, 0]))
+        rng.bit_generator.advance(lo * (self.seq_len + 1))
         u = rng.random((n, self.seq_len + 1))
         toks = np.minimum((self.vocab * u ** 2.2).astype(np.int32),
                           self.vocab - 1)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     def batch(self, step: int) -> dict[str, np.ndarray]:
-        return self._host_batch(step, 0, self.global_batch)
+        return self._rows(step, 0, self.global_batch)
 
-    global_arrays = deferred("A.8", "the per-host sharded batch on a mesh")
+    def global_arrays(self, step: int, mesh,
+                      batch_axes=BATCH_AXES) -> dict[str, np.ndarray]:
+        """This rank's rows of the global batch, the batch dim split over
+        the mesh's ``batch_axes`` (DTensor's chunk rule)."""
+        from repro_torch.distributed.local import shard_slices
+
+        rows = shard_slices((self.global_batch, self.seq_len),
+                            P(batch_axes, None), mesh)[0]
+        return self._rows(step, rows.start, rows.stop - rows.start)
 
 
-make_global_batch = deferred("A.8", "the per-host sharded batch on a mesh")
+def make_global_batch(source: SyntheticLM, mesh, step: int):
+    return source.global_arrays(step, mesh)
 
 
 class Prefetcher:

@@ -27,8 +27,13 @@ words as bfloat16 again: the same bits.
 
 Trees are nested dicts, tuples and lists of tensors, and ``OptState``
 (its fields step, m, v at indices 0, 1, 2, as the reference's pytree
-registration flattens it).  Re-sharding onto a device mesh (the
-reference's ``mesh``/``specs``) is not ported yet (ROADMAP A.8).
+registration flattens it).
+
+On a mesh the files stay mesh-agnostic, as in the reference: ``save``
+gathers each DTensor leaf whole (every rank takes part) and rank 0 writes;
+``restore(step, like, mesh=, specs=)`` lays each leaf out by its spec on
+the *current* mesh, as DTensors -- the elastic re-mesh: a checkpoint saved
+from one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SEP = "__"
 
@@ -86,8 +92,20 @@ def _rebuild(like: Any, leaf_of, prefix: tuple[str, ...] = ()) -> Any:
     return leaf_of(SEP.join(prefix), like)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a
+    process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(a host copy of ``leaf`` as numpy, its dtype name)."""
+    """(a host copy of ``leaf`` as numpy, its dtype name); a DTensor is
+    gathered whole first (a collective: every rank calls this)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        from repro_torch.distributed.local import full_tensor
+        leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)   # never alias the live leaf
         if t.dtype == torch.bfloat16:
@@ -108,8 +126,11 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:
         """Checkpoint ``tree`` as ``step``.  The leaves are copied to the
         host before this returns, so the caller may update them in place
-        while a non-blocking write runs."""
+        while a non-blocking write runs.  In a process group every rank
+        calls this (DTensor leaves are gathered) and rank 0 writes."""
         host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        if not _writer():
+            return
         if blocking:
             self._write(step, host)
         else:
@@ -215,24 +236,42 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def arity(self, step: int) -> int:
+        """How many top-level entries the tree saved at ``step`` has (0
+        where its manifest does not load)."""
+        from repro_torch.core.artifacts import read_json_object
+
+        doc = read_json_object(self.dir / f"step-{step:012d}"
+                               / "manifest.json", "checkpoint manifest")
+        if not doc:
+            return 0
+        return len({k.split(SEP, 1)[0] for k in doc["leaves"]})
+
     def restore(self, step: int, like: Any, mesh=None, specs: Any = None
                 ) -> Any:
         """Restore into the structure of ``like``: each leaf on its
-        ``like`` leaf's device and dtype.
+        ``like`` leaf's device and dtype; with ``mesh`` and ``specs`` (a
+        spec tree shaped like ``like``), each leaf a DTensor laid out by
+        its spec on the *current* mesh -- the elastic re-mesh path.
 
         A corrupt or partial checkpoint at ``step`` (a missing leaf, a torn
         ``.npy``, a bad manifest, a shape other than ``like``'s) is skipped
         with a warning and the newest older step is tried; ``None`` when no
         checkpoint restores cleanly (callers start fresh)."""
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP A.8: restoring onto a device mesh)")
+        if (mesh is None) != (specs is None):
+            raise ValueError("restore onto a mesh takes both mesh= and "
+                             "specs=")
         for s in reversed([x for x in self.all_steps() if x <= step]):
             try:
-                return self._restore_step(s, like)
+                tree = self._restore_step(s, like)
             except Exception as e:   # missing leaves, torn npy, bad manifest
                 warnings.warn(f"checkpoint step {s} in {self.dir}: corrupt "
                               f"or partial ({e}); skipping", stacklevel=2)
+                continue
+            if mesh is None:
+                return tree
+            from repro_torch.distributed.local import distribute
+            return distribute(tree, specs, mesh)
         return None
 
     def _restore_step(self, step: int, like: Any) -> Any:

@@ -23,12 +23,17 @@ free *pages* rather than free slots, prefill is chunked and interleaved with
 decode, and low-priority requests are preempted (swapped out to host memory,
 bit-exactly) under page pressure.
 
-Not ported yet (ROADMAP A.8): tensor-parallel serving (``--mesh``); it
-raises rather than being ignored.
+Tensor-parallel serving (``mesh=``, ``--mesh data=D,model=T``) is SPMD:
+every rank runs the same host scheduler on the same requests, on its own
+shard of the params and caches (``distributed.local``); the logits reach
+every rank whole, so every rank commits the same tokens.  Rank 0 prints.
+The data axis replicates the engine (each data rank serves every slot).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --smoke --device cpu [--paged --page-size 8 --pages 24 --sanitize]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --smoke --device cpu --mesh data=1,model=2
 """
 from __future__ import annotations
 
@@ -46,7 +51,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.ft import ProgressWatchdog, inject
 from repro_torch.ft.inject import InjectedFault
 from repro_torch.launch.paging import PageAllocator, PriorityScheduler
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.distributed.sharding import tp_size
+from repro_torch.launch.steps import (make_cache, make_decode_step,
+                                      make_prefill_step, resolve_tp,
+                                      shard_params)
 from repro_torch.models import family_module, reduced
 from repro_torch.models.tree import leaves, tree_map
 
@@ -54,10 +62,8 @@ from repro_torch.models.tree import leaves, tree_map
 #: in exactly one of these; ``PENDING`` is the only non-terminal state.
 TERMINAL_STATUSES = ("OK", "CANCELLED", "EXPIRED", "REJECTED", "FAILED")
 
-# flags of the reference's CLI whose code is not ported yet: they raise
-_DEFERRED_FLAGS = {
-    "mesh": "tensor-parallel serving is not ported yet (ROADMAP A.8)",
-}
+# the reference's name for the TP degree of a mesh-hosted engine
+_resolve_mesh_tp = resolve_tp
 
 
 class EngineStalledError(RuntimeError):
@@ -295,20 +301,24 @@ class ServeEngine:
         if cfg.embed_inputs:
             raise ValueError(f"{cfg.name} is encoder-only: no decode loop "
                              f"(DESIGN.md §5)")
+        self.cfg, self.mod, self.mesh = cfg, family_module(cfg), mesh
         if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported "
-                                      "yet (ROADMAP A.8)")
-        self.cfg, self.params = cfg, params
-        self.mod = family_module(cfg)
+            # whole params (padded for the mesh's 'model' axis) or
+            # DTensors -> this rank's compute view
+            tp = _resolve_mesh_tp(mesh, tp)
+            params = shard_params(cfg, params, mesh)
+        self.params = params
         self.device = params["embed"]["table"].device
         self.n_slots, self.max_seq = slots, max_seq
         self.scheduler = FCFSScheduler(slots, max_concurrency)
-        self._decode = make_decode_step(cfg, tp=tp, impl=impl)
+        self._decode = make_decode_step(cfg, tp=tp, impl=impl, mesh=mesh)
         self._prefill = make_prefill_step(cfg, tp=tp, impl=impl,
-                                          cache_len=max_seq)
+                                          cache_len=max_seq, mesh=mesh)
         self._axes = self.mod.cache_slot_axes(cfg)
-        self.cache = self.mod.init_cache(cfg, slots, max_seq, tp,
-                                         device=self.device)
+        self.cache = make_cache(
+            cfg, mesh, lambda dev: self.mod.init_cache(cfg, slots, max_seq,
+                                                       tp, device=dev),
+            self.mod.cache_specs(cfg), self.device)
         self.pos = np.zeros(slots, np.int64)   # per-slot next write position
         self.clock = clock
         self.stall_limit = stall_limit
@@ -497,10 +507,11 @@ class PagedServeEngine:
         if cfg.embed_inputs:
             raise ValueError(f"{cfg.name} is encoder-only: no decode loop "
                              f"(DESIGN.md §5)")
+        self.cfg, self.mod, self.mesh = cfg, family_module(cfg), mesh
         if mesh is not None:
-            raise NotImplementedError(_DEFERRED_FLAGS["mesh"])
-        self.cfg, self.params = cfg, params
-        self.mod = family_module(cfg)
+            tp = _resolve_mesh_tp(mesh, tp)
+            params = shard_params(cfg, params, mesh)
+        self.params = params
         self.device = params["embed"]["table"].device
         self.n_slots, self.max_seq = slots, max_seq
         self.prefill_chunk = max(1, prefill_chunk)
@@ -511,11 +522,13 @@ class PagedServeEngine:
         self.scheduler = PriorityScheduler(slots, max_concurrency, age_steps)
         # chunked prefill and batched decode run the same decode step: on a
         # private dense cache (no row_map) and on the paged cache
-        self._decode = make_decode_step(cfg, tp=tp, impl=impl)
+        self._decode = make_decode_step(cfg, tp=tp, impl=impl, mesh=mesh)
         self._axes = self.mod.paged_slot_axes(cfg)
         self._has_pool = "pool" in leaves(self._axes)
-        self.cache = self.mod.init_paged_cache(
-            cfg, slots, n_pages * page_size, max_seq, tp, device=self.device)
+        self.cache = make_cache(
+            cfg, mesh, lambda dev: self.mod.init_paged_cache(
+                cfg, slots, n_pages * page_size, max_seq, tp, device=dev),
+            self.mod.paged_cache_specs(cfg), self.device)
         self.row_map = np.full((slots, max_seq), -1, np.int32)
         # pos sentinel max_seq: an idle/prefilling slot's decode-batch lane
         # writes past the page table, onto the pool's scratch row
@@ -745,8 +758,11 @@ class PagedServeEngine:
             self._swap_in(slot, req)
             return
         self.pos[slot] = self.max_seq
-        self._prefills[slot] = _Prefill(req, self.mod.init_prefill_cache(
-            self.cfg, 1, len(req.prompt), self._tp, device=self.device))
+        self._prefills[slot] = _Prefill(req, make_cache(
+            self.cfg, self.mesh,
+            lambda dev: self.mod.init_prefill_cache(
+                self.cfg, 1, len(req.prompt), self._tp, device=dev),
+            self.mod.cache_specs(self.cfg), self.device))
 
     def _admit_new(self) -> None:
         """Admit waiting requests in (effective priority, submit) order,
@@ -1054,6 +1070,30 @@ def make_requests(cfg, n: int, max_new: int, seed: int = 0,
     return reqs
 
 
+def parse_mesh_flag(spec: str, device="cpu"):
+    """``--mesh data=1,model=8`` -> a host ('data', 'model') mesh.  Both
+    axes must be named, and their product must equal the process group's
+    rank count (launch the ranks with ``torchrun``)."""
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    import torch.distributed as dist
+
+    shape: dict[str, int] = {}
+    for part in spec.split(","):
+        k, sep, v = part.partition("=")
+        if not sep or not v.strip().isdigit():
+            raise ValueError(f"--mesh expects axis=size pairs, got {part!r}")
+        shape[k.strip()] = int(v)
+    if sorted(shape) != ["data", "model"]:
+        raise ValueError(f"--mesh must name exactly data= and model=, "
+                         f"got {sorted(shape)}")
+    init_distributed(device)
+    n = dist.get_world_size()
+    if shape["data"] * shape["model"] != n:
+        raise ValueError(f"mesh {spec} wants {shape['data'] * shape['model']}"
+                         f" ranks, the process group has {n}")
+    return make_host_mesh(tp=shape["model"], device=device)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-8b")
@@ -1083,7 +1123,9 @@ def main(argv=None) -> None:
                          "invariants after every engine tick "
                          "(repro_torch.analysis.kv_sanitizer)")
     ap.add_argument("--mesh", default=None, metavar="data=D,model=T",
-                    help=_DEFERRED_FLAGS["mesh"])
+                    help="serve tensor-parallel over a device mesh, e.g. "
+                         "data=1,model=2 (its product must equal the "
+                         "process group's rank count: launch with torchrun)")
     ap.add_argument("--long-every", type=int, default=0,
                     help="every k-th request gets a long prompt (mixed "
                          "traffic; 0 = homogeneous)")
@@ -1118,9 +1160,6 @@ def main(argv=None) -> None:
                     help="Chrome trace path (default: artifacts/trace.json)")
     args = ap.parse_args(argv)
 
-    for flag, why in _DEFERRED_FLAGS.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: {why}")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: serve on the card, or pass "
@@ -1151,8 +1190,22 @@ def main(argv=None) -> None:
     if cfg.embed_inputs:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode loop "
                          f"(DESIGN.md §5)")
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = parse_mesh_flag(args.mesh, args.device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    import torch.distributed as dist
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if mesh is not None:
+        from repro_torch.launch.mesh import describe
+        say(f"mesh: {describe(mesh)}")
+    tp = 1 if mesh is None else tp_size(mesh)
     mod = family_module(cfg)
-    params = mod.init(cfg, seed=args.seed, device=args.device)
+    # every rank makes the same whole params from the seed, keeps its shard
+    params = mod.init(cfg, seed=args.seed, tp=tp, device=args.device)
     requests = make_requests(cfg, args.requests, args.max_new, args.seed,
                              long_every=args.long_every)
     if args.deadline_s is not None:
@@ -1163,7 +1216,8 @@ def main(argv=None) -> None:
     t0 = time.time()
     done, stats = serve_requests(
         cfg, params, requests, slots=args.slots, max_seq=args.max_seq,
-        impl=impl, max_concurrency=1 if args.sequential else None,
+        tp=tp, mesh=mesh, impl=impl,
+        max_concurrency=1 if args.sequential else None,
         paged=args.paged, page_size=args.page_size, n_pages=args.pages,
         prefill_chunk=args.prefill_chunk, stall_limit=args.stall_limit,
         sanitize=args.sanitize and args.paged)
@@ -1172,28 +1226,30 @@ def main(argv=None) -> None:
     dt = time.time() - t0
     for req in done:
         tail = "" if req.status == "OK" else f"  [{req.status}]"
-        print(f"req {req.rid}: prompt[{len(req.prompt)}] -> "
+        say(f"req {req.rid}: prompt[{len(req.prompt)}] -> "
               f"{req.out}{tail}")
-    print(f"{len(done)} requests, {stats['generated']} tokens in "
+    say(f"{len(done)} requests, {stats['generated']} tokens in "
           f"{stats['decode_steps']} decode steps "
           f"({stats['preemptions']} preemptions), "
           f"{stats['generated'] / dt:.1f} tok/s on {args.device}")
-    print("status: " + ", ".join(f"{k}={v}" for k, v in
+    say("status: " + ", ".join(f"{k}={v}" for k, v in
                                  stats["status_counts"].items()))
     plan = inject.plan()
     if plan is not None:
-        print(f"fault injection: {plan.summary()}")
+        say(f"fault injection: {plan.summary()}")
     ttft = stats["ttft_s"]
     if ttft["count"]:
-        print(f"ttft p50={ttft['p50']:.4f}s p95={ttft['p95']:.4f}s "
+        say(f"ttft p50={ttft['p50']:.4f}s p95={ttft['p95']:.4f}s "
               f"p99={ttft['p99']:.4f}s")
     if args.trace:
         tpath = obs.export_telemetry(args.telemetry_out)
         cpath = obs.export_chrome_trace(args.trace_out)
         st = obs.state()
-        print(f"telemetry: {len(st.tracer)} events "
+        say(f"telemetry: {len(st.tracer)} events "
               f"({st.tracer.dropped} dropped), {len(st.metrics)} metrics "
               f"-> {tpath} + {cpath} (open in ui.perfetto.dev)")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,12 @@ params in place).  It trains with ``impl=kernels.plain`` by default, the
 reference's ``impl="xla"``: the plain versions under autograd, attention
 through its custom VJP.  The hand-written kernels have no backward, and a
 model run with ``impl="cuda"`` under autograd raises.
+
+Every builder takes ``mesh=``: the step then runs under that ambient mesh
+(``distributed.context.use_mesh``) on the compute view of the params
+(:func:`shard_params`), each rank on its own shard, and ``tp`` is the
+mesh's 'model' axis.  The train step under a mesh takes this rank's rows
+of the global batch and averages loss and grads over 'data'.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import context, local
+from repro_torch.distributed.sharding import tp_size
 from repro_torch.kernels import plain
 from repro_torch.models import family_module
 from repro_torch.models.config import ModelConfig
@@ -22,6 +30,42 @@ from repro_torch.models.tree import leaves, tree_map
 from repro_torch.optim import AdamW, ef_compress
 
 Params = Any
+
+
+def resolve_tp(mesh, tp: int) -> int:
+    """TP degree of a mesh-hosted step: the mesh's 'model' axis.  An
+    explicit non-default ``tp`` must agree (params were padded with
+    it)."""
+    if mesh is None:
+        return tp
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a DeviceMesh with named axes, got "
+                        f"{type(mesh).__name__}")
+    mtp = tp_size(mesh)
+    if tp not in (1, mtp):
+        raise ValueError(f"tp={tp} conflicts with the mesh's model axis "
+                         f"({mtp}); the mesh decides the TP degree")
+    return mtp
+
+
+def shard_params(cfg: ModelConfig, params: Params, mesh) -> Params:
+    """The compute view on this rank (``distributed.local``) of whole
+    params (padded for the mesh's 'model' axis) or of DTensors laid out by
+    the family's specs."""
+    mod = family_module(cfg)
+    return local.local_params(params, mod.specs(cfg), mesh,
+                              mod.compute_segments(cfg, tp_size(mesh)))
+
+
+def _on_mesh(fn, mesh):
+    """``fn`` run under the ambient ``mesh`` (unchanged without one)."""
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with context.use_mesh(mesh):
+            return fn(*args, **kwargs)
+    return run
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -68,17 +112,29 @@ def value_and_grad(loss_fn, params: Params, batch: dict
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, tp: int = 1,
-                    impl=plain, ef_state: Params | None = None):
+                    impl=plain, ef_state: Params | None = None, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``: :func:`value_and_grad`, then the optimizer
     updates the params in place.  With ``ef_state``
     (``optim.ef_init(params)``) the grads are int8-compressed with error
     feedback before the update and the residual is carried in
-    ``ef_state``, in place."""
+    ``ef_state``, in place.
+
+    Under ``mesh`` the params are this rank's compute view, ``batch`` this
+    rank's rows of the global batch (``SyntheticLM.global_arrays``); the
+    loss and the grads are averaged over 'data' (equal rows a rank, so the
+    global batch's mean), and the optimizer, sharded by
+    ``optimizer.shard``, updates its ZeRO-1 slice."""
+    tp = resolve_tp(mesh, tp)
     loss_fn = make_loss_fn(cfg, tp=tp, impl=impl)
+    data = local.mesh_axis(mesh, "data")
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(loss_fn, params, batch)
+        if data is not None:
+            loss = local.all_reduce(loss, data.group) / data.size
+            grads = tree_map(
+                lambda g: local.all_reduce(g, data.group) / data.size, grads)
         if ef_state is not None:
             grads, new_ef = ef_compress(grads, ef_state)
             for e, n in zip(leaves(ef_state), leaves(new_ef)):
@@ -86,11 +142,22 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, tp: int = 1,
         params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    return train_step
+    return _on_mesh(train_step, mesh)
+
+
+def make_cache(cfg: ModelConfig, mesh, build, specs, device) -> Params:
+    """``build(device)``'s cache -- under ``mesh``, this rank's compute
+    view of it, allocated without its whole: ``build`` is called with
+    ``"meta"`` for the shapes, laid out by ``specs``."""
+    if mesh is None:
+        return build(device)
+    return local.local_zeros(
+        build("meta"), specs, mesh, device,
+        family_module(cfg).compute_segments(cfg, tp_size(mesh)))
 
 
 def make_prefill_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda",
-                      cache_len: int | None = None):
+                      cache_len: int | None = None, mesh=None):
     """Prefill step builder.
 
     Without ``cache_len`` (prefill scoring): a plain full-sequence forward
@@ -102,28 +169,38 @@ def make_prefill_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda",
     device, returning ``(logits, slot_cache)`` where ``slot_cache`` is
     packed into the serving layout (length ``cache_len``, ring folds
     applied): what S sequential decode steps would have left.
+
+    Under ``mesh`` the params are this rank's compute view
+    (:func:`shard_params`) and so is the slot cache; the logits are whole
+    on every rank.
     """
     mod = family_module(cfg)
+    tp = resolve_tp(mesh, tp)
 
     if cache_len is None:
         def prefill_step(params, batch):
             return mod.forward(params, cfg, batch, tp=tp, impl=impl)
 
-        return prefill_step
+        return _on_mesh(prefill_step, mesh)
 
     def slot_prefill_step(params, tokens):
         b, s = tokens.shape
-        pcache = mod.init_prefill_cache(cfg, b, s, tp, device=tokens.device)
+        pcache = make_cache(
+            cfg, mesh, lambda dev: mod.init_prefill_cache(cfg, b, s, tp,
+                                                          device=dev),
+            mod.cache_specs(cfg), tokens.device)
         logits, pcache = mod.decode_step(
             params, cfg, pcache, tokens, torch.zeros(b, dtype=torch.int64),
             tp=tp, impl=impl)
         return logits, mod.pack_slot_cache(cfg, pcache, cache_len, s)
 
-    return slot_prefill_step
+    return _on_mesh(slot_prefill_step, mesh)
 
 
-def make_decode_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda"):
+def make_decode_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda",
+                     mesh=None):
     mod = family_module(cfg)
+    tp = resolve_tp(mesh, tp)
 
     def decode_step(params, cache, tokens, pos, row_map=None):
         """tokens (B, S); pos (B,) per-slot absolute positions (scalar
@@ -131,4 +208,4 @@ def make_decode_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda"):
         return mod.decode_step(params, cfg, cache, tokens, pos,
                                tp=tp, impl=impl, row_map=row_map)
 
-    return decode_step
+    return _on_mesh(decode_step, mesh)

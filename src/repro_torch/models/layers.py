@@ -20,8 +20,14 @@ decode step writes one row per slot instead of copying the whole cache.
 A paged KV pool (:func:`init_paged_kv_pool`) holds one scratch row past
 the rows a page table can map: every write that the reference drops
 (``mode="drop"``) lands there instead, so the scatter keeps a fixed shape.
-The sharding hints of the reference (``constrain``) are left out: without
-a device mesh they do nothing.
+Under a device mesh (the ambient mesh of ``distributed.context.use_mesh``)
+every layer computes on this rank's compute view of its params
+(``distributed.local``): heads, ``d_ff``, the vocab and the experts are
+split over 'model', and the layers add the collectives that GSPMD inserts
+in the reference: column-parallel ``wq``/``wk``/``wv``/``w_gate``/``w_up``,
+row-parallel ``wo``/``w_down`` summed over 'model', a vocab-parallel
+embedding and head, experts over 'model'.  Each ``*_specs`` function gives
+the reference's spec tree of its ``*_init``.
 """
 from __future__ import annotations
 
@@ -32,18 +38,12 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import local
+from repro_torch.distributed.sharding import BATCH_AXES, FSDP, TP, P
 from repro_torch.kernels import ops
 from .config import ModelConfig
 
 Params = dict[str, Any]
-
-def deferred(item: str, what: str):
-    """A stand-in for a function of the reference not ported yet: calling
-    it raises, naming the ROADMAP item that holds it."""
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"not ported yet (ROADMAP {item}: {what})")
-    return fn
-
 
 def op(impl, name: str):
     """The function that runs kernel op ``name`` ('attention', 'rwkv6',
@@ -105,9 +105,76 @@ def embed_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
     return {"table": _normal(gen, (v, cfg.d_model), 0.02, dtype, device)}
 
 
+def embed_specs() -> Params:
+    # vocab over TP, d_model over FSDP
+    return {"table": P(TP, FSDP)}
+
+
+def segment_sum_rows(grad: torch.Tensor, ids: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """``out[r] = sum of grad[i] over i with ids[i] == r``, (rows, d), in
+    an order fixed by the data alone: a stable sort of the ids puts each
+    row's contributions in one run, in their original order, and each run
+    is summed by a pairwise tree (at level ``s`` the element at in-run
+    position ``j``, ``j % 2s == 0``, adds the one at ``j + s``).  No atomic
+    adds (``index_add_``, ``index_put_(accumulate=True)`` and
+    ``scatter_add_`` use them on the card), so the same inputs give the same
+    bits on every call, on the CPU and on the card.  Sums in float32."""
+    d = grad.shape[-1]
+    ids = ids.reshape(-1)
+    vals = grad.reshape(-1, d).float()
+    ids_sorted, order = torch.sort(ids, stable=True)
+    vals = vals[order]
+    uniq, counts = torch.unique_consecutive(ids_sorted, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    run = torch.repeat_interleave(torch.arange(len(uniq), device=ids.device),
+                                  counts)
+    pos = torch.arange(len(ids), device=ids.device) - starts[run]
+    cnt = counts[run]
+    longest = int(counts.max()) if len(counts) else 0
+    stride = 1
+    while stride < longest:
+        recv = torch.nonzero(((pos % (2 * stride)) == 0)
+                             & (pos + stride < cnt))[:, 0]
+        vals[recv] = vals[recv] + vals[recv + stride]
+        stride *= 2
+    out = vals.new_zeros((rows, d))
+    out[uniq] = vals[starts]          # unique rows: a plain write
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """``table[ids]`` whose backward is :func:`segment_sum_rows`: the
+    gradient of the table is bit-stable from call to call (the plain
+    gather's backward accumulates repeated ids in a varying order)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return segment_sum_rows(grad, ids, ctx.rows).to(ctx.dtype), None
+
+
 def embed(params: Params, tokens: torch.Tensor,
           scale: bool = False) -> torch.Tensor:
-    out = params["table"][tokens]
+    """The rows of ``table`` at ``tokens``.  Under a mesh whose 'model'
+    axis is T > 1 the table is this rank's vocab shard: a masked local
+    lookup, then a sum over 'model' (every other rank adds zeros)."""
+    table = params["table"]
+    tp = local.tp_group()
+    if tp is None:
+        out = _Gather.apply(table, tokens)
+    else:
+        lo = tp.rank * table.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+        ids = torch.where(mine, tokens - lo, 0)
+        out = _Gather.apply(table, ids) * mine[..., None].to(table.dtype)
+        out = local.row_out(out)
     if scale:
         out = out * math.sqrt(out.shape[-1])
     return out
@@ -115,13 +182,19 @@ def embed(params: Params, tokens: torch.Tensor,
 
 def unembed(params: Params, x: torch.Tensor, vocab: int,
             cap: float = 0.0) -> torch.Tensor:
+    """Logits over the (padded) vocab.  Under a 'model' axis the table is
+    this rank's vocab shard: local logits, then an all-gather on the
+    vocab."""
+    x = local.column_in(x)
     logits = x @ params["table"].T
     logits = softcap(logits, cap)
-    v_pad = params["table"].shape[0]
-    if v_pad > vocab:  # padded vocab rows never win
-        mask = torch.arange(v_pad, device=x.device) < vocab
+    rows = params["table"].shape[0]
+    tp = local.tp_group()
+    lo = 0 if tp is None else tp.rank * rows
+    if lo + rows > vocab:  # padded vocab rows never win
+        mask = torch.arange(lo, lo + rows, device=x.device) < vocab
         logits = torch.where(mask, logits, -1e30)
-    return logits
+    return local.gather_from_model(logits, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +220,15 @@ def attn_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def attn_specs(cfg: ModelConfig) -> Params:
+    p = {"wq": P(FSDP, TP), "wk": P(FSDP, TP), "wv": P(FSDP, TP),
+         "wo": P(TP, FSDP)}
+    if cfg.qk_norm:
+        p["q_norm"] = P(None)
+        p["k_norm"] = P(None)
     return p
 
 
@@ -229,14 +311,18 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     (R + 1, KV, hd) written and read through the page table.  Ring leaves
     stay dense, so one model can mix both."""
     pd = cfg.padded(tp)
-    h, kv, hd = pd.n_heads, pd.n_kv_heads, cfg.head_dim
+    t = local.tp_degree()                   # this rank's 1/t of the heads
+    h, kv, hd = pd.n_heads // t, pd.n_kv_heads // t, cfg.head_dim
 
+    x = local.column_in(x)
     q = _split_heads(x @ params["wq"], h, hd)
     k = _split_heads(x @ params["wk"], kv, hd)
     v = _split_heads(x @ params["wv"], kv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        # one weight for every head, and this rank sees its own heads:
+        # under a 'model' axis its gradient is summed over the ranks
+        q = rms_norm(q, local.copy_to_model(params["q_norm"]))
+        k = rms_norm(k, local.copy_to_model(params["k_norm"]))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -311,7 +397,7 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                                     softcap=cfg.attn_softcap, window=window)
 
     out = out.reshape(x.shape[0], x.shape[1], h * hd)
-    return out @ params["wo"], cache
+    return local.row_out(out @ params["wo"]), cache
 
 
 def _decode_attention(q, ck, cv, cfg: ModelConfig, last_pos: torch.Tensor,
@@ -354,6 +440,26 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def kv_cache_specs(cfg: ModelConfig | None = None) -> Params:
+    base = {"k": P(BATCH_AXES, None, TP, None),
+            "v": P(BATCH_AXES, None, TP, None)}
+    if cfg is not None and cfg.kv_int8:
+        base["k_scale"] = P(BATCH_AXES, None, TP)
+        base["v_scale"] = P(BATCH_AXES, None, TP)
+    return base
+
+
+def paged_kv_pool_specs(cfg: ModelConfig | None = None) -> Params:
+    """Specs of :func:`init_paged_kv_pool` leaves (rows, kv_heads, hd):
+    kv-heads over TP like the dense cache; the physical-row axis stays
+    replicated (the host's page table addresses every row)."""
+    base = {"k": P(None, TP, None), "v": P(None, TP, None)}
+    if cfg is not None and cfg.kv_int8:
+        base["k_scale"] = P(None, TP)
+        base["v_scale"] = P(None, TP)
+    return base
+
+
 def init_paged_kv_pool(cfg: ModelConfig, rows: int, tp: int = 1,
                        dtype=torch.bfloat16, device="cuda") -> Params:
     """Physical KV pool of ``rows`` page-resident rows shared by every slot,
@@ -383,11 +489,17 @@ def mlp_init(gen, cfg: ModelConfig, dtype, device) -> Params:
             "w_down": _normal(gen, (f, d), f ** -0.5, dtype, device)}
 
 
+def mlp_specs() -> Params:
+    return {"w_gate": P(FSDP, TP), "w_up": P(FSDP, TP),
+            "w_down": P(TP, FSDP)}
+
+
 def mlp(params: Params, x: torch.Tensor, gelu: bool = False) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
+    x = local.column_in(x)
     gate = x @ params["w_gate"]
     act = F.gelu(gate, approximate="tanh") if gelu else F.silu(gate)
-    return (act * (x @ params["w_up"])) @ params["w_down"]
+    return local.row_out((act * (x @ params["w_up"])) @ params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -407,6 +519,12 @@ def moe_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
         "w_up": _normal(gen, (e, d, f), d ** -0.5, dtype, device),
         "w_down": _normal(gen, (e, f, d), f ** -0.5, dtype, device),
     }
+
+
+def moe_specs() -> Params:
+    return {"router": P(None, TP), "router_mask": P(TP),
+            "w_gate": P(TP, FSDP, None), "w_up": P(TP, FSDP, None),
+            "w_down": P(TP, None, FSDP)}
 
 
 def _dispatch_group(x2, logits, k: int, cap: int):
@@ -447,14 +565,29 @@ def moe(params: Params, cfg: ModelConfig, x: torch.Tensor,
     group's (E, cap) buffer.  FLOPs scale with top_k·T (capacity
     ``capacity_factor``), not E·T; ``cap`` depends on the sequence length,
     so a prompt prefilled in chunks may drop other tokens than prefilled
-    whole."""
+    whole.
+
+    Under a 'model' axis each rank holds ``E / T`` experts and their
+    router columns: the router's logits are all-gathered so that every
+    rank routes alike, each rank runs its own experts on their slice of the
+    dispatch buffer, and the combined outputs are summed over 'model'."""
+    x = local.column_in(x)
     b, s, d = x.shape
-    e = params["w_gate"].shape[0]
+    e_local = params["w_gate"].shape[0]
+    tp = local.tp_group()
+    lo = 0 if tp is None else tp.rank * e_local
+    e = e_local * (1 if tp is None else tp.size)
     k = cfg.top_k
     cap = max(8, int(math.ceil(s * k / e * cfg.capacity_factor)))
 
-    logits = x.float() @ params["router"] + params["router_mask"]
+    logits = local.gather_partial(
+        x.float() @ params["router"] + params["router_mask"], -1)
     buf, flat_e, slot, keep, gates = _dispatch_group(x, logits, k, cap)
+    if tp is not None:
+        buf = buf[:, lo:lo + e_local]
+        mine = (flat_e >= lo) & (flat_e < lo + e_local)
+        keep = keep * mine[..., None].to(keep.dtype)
+        flat_e = torch.where(mine, flat_e - lo, 0)
     if cfg.moe_int8_dispatch:
         # the dispatch buffer quantized to int8 as the reference does
         scale = torch.amax(torch.abs(buf.float()), dim=-1,
@@ -467,4 +600,4 @@ def moe(params: Params, cfg: ModelConfig, x: torch.Tensor,
     g_idx = torch.arange(b, device=x.device)[:, None]
     out_tok = out_buf[g_idx, flat_e, slot] * keep          # (B, S*K, d)
     out = (out_tok.reshape(b, s, k, d) * gates[..., None]).sum(dim=2)
-    return out.to(x.dtype)
+    return local.row_out(out.to(x.dtype))

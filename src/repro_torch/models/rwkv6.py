@@ -13,7 +13,14 @@ einsums (no kernel launch).
 
 The cache is the recurrent state, O(1) in sequence length, written in
 place; the paged engine pages nothing of it (its paged cache is the dense
-cache).  Not ported (ROADMAP A.8): the tensor-parallel specs; they raise.
+cache).
+
+Under a mesh each rank runs its own heads (``specs``: ``wr``/``wk``/``wv``/
+``wg``, ``w_lora_b`` and ``wck``/``wcr`` column-parallel, ``wo``/``wcv``
+row-parallel; ``u``, ``w0`` and the per-head group norm ``ln_x`` local to
+the heads), the token-shift mixing replicated.  The channel mix's
+receptance ``sigmoid(xr @ wcr)`` is column-split, so it is all-gathered
+before it gates the row-parallel sum.
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import local
+from repro_torch.distributed.sharding import FSDP, TP, P, spec_map
 
 from . import layers as L
 from .config import ModelConfig
@@ -70,6 +80,19 @@ def _block_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
     return p
 
 
+def _block_specs(cfg: ModelConfig) -> Params:
+    return {
+        "ln1": P(None), "ln2": P(None),
+        "mu": P(None, None),
+        "wr": P(FSDP, TP), "wk": P(FSDP, TP), "wv": P(FSDP, TP),
+        "wg": P(FSDP, TP), "wo": P(TP, FSDP),
+        "w0": P(TP), "w_lora_a": P(FSDP, None), "w_lora_b": P(None, TP),
+        "u": P(TP, None), "ln_x": P(TP, None),
+        "mu_c": P(None, None),
+        "wck": P(FSDP, TP), "wcv": P(TP, FSDP), "wcr": P(FSDP, TP),
+    }
+
+
 def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     """Token shift: x_{t-1}, with ``prev`` as the carry for decode."""
     if x.shape[1] == 1 and prev is not None:
@@ -82,17 +105,18 @@ def _time_mix(p: Params, cfg: ModelConfig, x, tp: int, impl,
               wkv_state=None, shift_prev=None):
     b, s, _ = x.shape
     dh = cfg.rwkv_head_dim
-    h = _heads(cfg, tp)
+    h = _heads(cfg, tp) // local.tp_degree()       # this rank's heads
     xp = _shift(x, shift_prev)
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xg, xw = (x + (xp - x) * mu[i] for i in range(5))
+    col = local.column_in
 
-    r = (xr @ p["wr"]).reshape(b, s, h, dh)
-    k = (xk @ p["wk"]).reshape(b, s, h, dh)
-    v = (xv @ p["wv"]).reshape(b, s, h, dh)
-    g = F.silu(xg @ p["wg"])
+    r = (col(xr) @ p["wr"]).reshape(b, s, h, dh)
+    k = (col(xk) @ p["wk"]).reshape(b, s, h, dh)
+    v = (col(xv) @ p["wv"]).reshape(b, s, h, dh)
+    g = F.silu(col(xg) @ p["wg"])
     # data-dependent decay (Finch): log-decay = -exp(w0 + lora(x_w)) <= 0
-    lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    lora = col(torch.tanh(xw @ p["w_lora_a"])) @ p["w_lora_b"]
     logw = -torch.exp(torch.clamp((p["w0"] + lora).float(), -8.0, 6.0))
     logw = logw.reshape(b, s, h, dh)
 
@@ -112,7 +136,7 @@ def _time_mix(p: Params, cfg: ModelConfig, x, tp: int, impl,
     # per-head group norm, then gate and project
     out = L.rms_norm(out, p["ln_x"])
     out = out.reshape(b, s, h * dh) * g
-    return out @ p["wo"], new_state, x[:, -1]
+    return local.row_out(out @ p["wo"]), new_state, x[:, -1]
 
 
 def _channel_mix(p: Params, x, shift_prev=None):
@@ -120,8 +144,10 @@ def _channel_mix(p: Params, x, shift_prev=None):
     mu = p["mu_c"].to(x.dtype)
     xk = x + (xp - x) * mu[0]
     xr = x + (xp - x) * mu[1]
-    hidden = torch.square(F.relu(xk @ p["wck"]))
-    return torch.sigmoid(xr @ p["wcr"]) * (hidden @ p["wcv"]), x[:, -1]
+    hidden = torch.square(F.relu(local.column_in(xk) @ p["wck"]))
+    rec = local.gather_from_model(
+        torch.sigmoid(local.column_in(xr) @ p["wcr"]), -1)
+    return rec * local.row_out(hidden @ p["wcv"]), x[:, -1]
 
 
 def _block(p: Params, cfg: ModelConfig, x, tp, impl, state=None):
@@ -156,6 +182,17 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
     }
 
 
+def specs(cfg: ModelConfig) -> Params:
+    blk = spec_map(lambda s: P(None, *s), _block_specs(cfg))
+    return {"embed": L.embed_specs(), "layers": blk, "final_norm": P(None),
+            "head": L.embed_specs()}
+
+
+def compute_segments(cfg: ModelConfig, tp: int) -> dict:
+    """No concatenated dims (``distributed.local``): heads split whole."""
+    return {}
+
+
 def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
             tp: int = 1, impl="cuda") -> torch.Tensor:
     """Full-sequence forward -> logits; every layer's recurrence goes
@@ -181,6 +218,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
         "shift_c": torch.zeros((n, batch, cfg.d_model), dtype=dtype,
                                device=device),
     }
+
+
+def cache_specs(cfg: ModelConfig) -> Params:
+    return {"wkv": P(None, L.BATCH_AXES, TP, None, None),
+            "shift_t": P(None, L.BATCH_AXES, None),
+            "shift_c": P(None, L.BATCH_AXES, None)}
 
 
 def init_prefill_cache(cfg: ModelConfig, batch: int, seq: int, tp: int = 1,
@@ -233,6 +276,11 @@ def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
     return init_cache(cfg, slots, max_seq, tp, dtype, device)
 
 
+def paged_cache_specs(cfg: ModelConfig) -> Params:
+    """The paged cache is the dense cache, so are its specs."""
+    return cache_specs(cfg)
+
+
 def paged_slot_axes(cfg: ModelConfig) -> Params:
     """No pooled leaves: every leaf is per-slot, as in
     :func:`cache_slot_axes`."""
@@ -244,6 +292,3 @@ def pack_paged_slot(cfg: ModelConfig, pcache: Params, max_seq: int,
     """Identity, as :func:`pack_slot_cache` (no sequence axis)."""
     return pack_slot_cache(cfg, pcache, max_seq, seq_len)
 
-
-specs = cache_specs = paged_cache_specs = L.deferred(
-    "A.8", "tensor-parallel specs")

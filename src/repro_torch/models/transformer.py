@@ -9,6 +9,12 @@ stacked on a leading axis (``{"all": ...}``, or ``{"local", "global"}`` for
 gemma2's alternation), so ``_run_layers`` is a loop over layer indices.
 The paged cache keeps full-length KV in one physical pool per layer stack
 (``layers.init_paged_kv_pool``) and gemma2's rings per slot.
+
+``specs``, ``cache_specs`` and ``paged_cache_specs`` are the reference's
+spec trees; under a mesh the model runs on each rank's compute view of its
+params (``distributed.local``), and a full-sequence forward of token
+inputs lays its residual stream out as the activation context says
+(sequence-parallel over 'model' under ``DEFAULT_TRAIN_SPEC``).
 """
 from __future__ import annotations
 
@@ -17,6 +23,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import local
+from repro_torch.distributed.sharding import P, spec_map
 
 from . import layers as L
 from .config import ModelConfig
@@ -49,23 +58,43 @@ def _block_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
     return p
 
 
+def _block_specs(cfg: ModelConfig) -> Params:
+    p: Params = {"ln_attn": P(None), "ln_mlp": P(None),
+                 "attn": L.attn_specs(cfg)}
+    if cfg.sandwich_norm:
+        p["ln_attn_post"] = P(None)
+        p["ln_mlp_post"] = P(None)
+    if cfg.n_experts:
+        p["moe"] = L.moe_specs()
+    else:
+        p["mlp"] = L.mlp_specs()
+    return p
+
+
+def _stacked_specs(tree):
+    """Specs of a layer stack: a leading replicated axis."""
+    return spec_map(lambda s: P(None, *s), tree)
+
+
 def _block(p: Params, cfg: ModelConfig, x, *, positions, tp, impl, window,
            cache=None, cache_pos=None, pages=None):
     plus_one = cfg.sandwich_norm  # gemma-style (1+w) norms
-    h = L.rms_norm(x, p["ln_attn"], plus_one=plus_one)
+    sp = local.seq_param          # the norms see this rank's tokens
+    h = L.rms_norm(x, sp(p["ln_attn"]), plus_one=plus_one)
     attn_out, cache = L.attention(
         p["attn"], cfg, h, positions=positions, tp=tp, impl=impl,
         window=window, cache=cache, cache_pos=cache_pos, pages=pages)
     if cfg.sandwich_norm:
-        attn_out = L.rms_norm(attn_out, p["ln_attn_post"], plus_one=True)
+        attn_out = L.rms_norm(attn_out, sp(p["ln_attn_post"]),
+                              plus_one=True)
     x = x + attn_out
-    h = L.rms_norm(x, p["ln_mlp"], plus_one=plus_one)
+    h = L.rms_norm(x, sp(p["ln_mlp"]), plus_one=plus_one)
     if cfg.n_experts:
         mlp_out = L.moe(p["moe"], cfg, h, tp)
     else:
         mlp_out = L.mlp(p["mlp"], h, gelu=cfg.gelu_mlp)
     if cfg.sandwich_norm:
-        mlp_out = L.rms_norm(mlp_out, p["ln_mlp_post"], plus_one=True)
+        mlp_out = L.rms_norm(mlp_out, sp(p["ln_mlp_post"]), plus_one=True)
     return x + mlp_out, cache
 
 
@@ -102,6 +131,24 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
     return p
 
 
+def specs(cfg: ModelConfig) -> Params:
+    blk = _block_specs(cfg)
+    if cfg.alt_local_global:
+        layers = {"local": _stacked_specs(blk), "global": _stacked_specs(blk)}
+    else:
+        layers = {"all": _stacked_specs(blk)}
+    p: Params = {"embed": L.embed_specs(), "layers": layers,
+                 "final_norm": P(None)}
+    if not cfg.name.startswith("gemma"):
+        p["head"] = L.embed_specs()
+    return p
+
+
+def compute_segments(cfg: ModelConfig, tp: int) -> dict:
+    """No concatenated dims (``distributed.local``)."""
+    return {}
+
+
 def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
                 caches=None, cache_pos=None, pages=None):
     """Run the block stack in order; returns (x, caches), the caches
@@ -136,14 +183,21 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
             tp: int = 1, impl: str = "cuda") -> torch.Tensor:
     """Full-sequence forward -> logits (prefill scoring / encoder).  Every
     layer's attention goes through ``ops.attention`` (the flash kernel when
-    ``impl='cuda'``)."""
-    x = _embed_inputs(params, cfg, inputs)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    x, _ = _run_layers(params, cfg, x, positions=positions, tp=tp, impl=impl)
-    x = L.rms_norm(x, params["final_norm"], plus_one=cfg.sandwich_norm)
-    head = params.get("head", params["embed"])
-    return L.unembed(head, x, cfg.vocab, cap=cfg.final_softcap)
+    ``impl='cuda'``).  Token inputs may run sequence-parallel under a
+    mesh (module docstring); frames and patch prefixes never do."""
+    tokens_only = not (cfg.embed_inputs or cfg.vis_tokens)
+    with local.residual_layout(inputs["tokens"].shape[1] if tokens_only
+                               else 0):
+        x = _embed_inputs(params, cfg, inputs)
+        b, s = x.shape[0], (inputs["tokens"].shape[1] if tokens_only
+                            else x.shape[1])
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        x, _ = _run_layers(params, cfg, x, positions=positions, tp=tp,
+                           impl=impl)
+        x = L.rms_norm(x, local.seq_param(params["final_norm"]),
+                       plus_one=cfg.sandwich_norm)
+        head = params.get("head", params["embed"])
+        return L.unembed(head, x, cfg.vocab, cap=cfg.final_softcap)
 
 
 def _stacked(n: int, leaves: Params, device) -> Params:
@@ -171,6 +225,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
                                     device)}
     return {"all": _stack_of(cfg, cfg.n_layers, batch, max_seq, tp, dtype,
                              device)}
+
+
+def cache_specs(cfg: ModelConfig) -> Params:
+    base = _stacked_specs(L.kv_cache_specs(cfg))
+    if cfg.alt_local_global:
+        return {"local": base, "global": base}
+    return {"all": base}
 
 
 def init_prefill_cache(cfg: ModelConfig, batch: int, seq: int, tp: int = 1,
@@ -251,6 +312,17 @@ def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
                                    device),
                 "global": pool(n)}
     return {"all": pool(cfg.n_layers)}
+
+
+def paged_cache_specs(cfg: ModelConfig) -> Params:
+    """Specs mirroring :func:`init_paged_cache`: pool leaves gain the layer
+    axis over the kv-pool specs; gemma2's local rings keep the dense
+    per-slot specs."""
+    pool = _stacked_specs(L.paged_kv_pool_specs(cfg))
+    if cfg.alt_local_global:
+        return {"local": _stacked_specs(L.kv_cache_specs(cfg)),
+                "global": pool}
+    return {"all": pool}
 
 
 def paged_slot_axes(cfg: ModelConfig) -> Params:

@@ -16,8 +16,16 @@ full-sequence forward its attention is the flash kernel at head_dim 80.
 
 Decode carries (conv tail, SSD state) per layer and the KV cache per
 shared-block call, written in place.  The paged cache pools the
-shared-attention KV and keeps the conv/SSD state per slot.  Not ported
-(ROADMAP A.8): the tensor-parallel specs; they raise.
+shared-attention KV and keeps the conv/SSD state per slot.
+
+Under a mesh each rank runs its own SSD heads.  ``in_proj``'s columns
+``[z | x | B | C | dt]`` and the conv's channels ``[x | B | C]`` are
+concatenations, so their compute view is taken segment by segment
+(:func:`compute_segments`, the rule in ``distributed.local``): z, x and dt
+by head, B and C (one group every head reads) whole.  B and C are then a
+replicated computation that each rank reads for its own heads only, so
+their gradient is summed over 'model' where they enter the SSD; and the
+gated RMS norm over the whole ``hp`` sums its squares over 'model'.
 """
 from __future__ import annotations
 
@@ -26,6 +34,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import local
+from repro_torch.distributed.sharding import FSDP, TP, P, spec_map
 
 from . import layers as L
 from .config import ModelConfig
@@ -72,6 +83,41 @@ def _mamba_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
     return p
 
 
+def _mamba_specs() -> Params:
+    return {
+        "ln": P(None), "in_proj": P(FSDP, TP),
+        "conv_w": P(None, TP), "conv_b": P(TP),
+        "a_log": P(TP), "dt_bias": P(TP), "d_skip": P(TP),
+        "norm": P(TP), "out_proj": P(TP, FSDP),
+    }
+
+
+def compute_segments(cfg: ModelConfig, tp: int) -> dict:
+    """The concatenated dims (``distributed.local``): for each leaf path,
+    the dim and its segments ``(length, split over 'model')``.  The conv
+    tail of the cache runs over the conv's channels."""
+    _, h, n = _dims(cfg, tp)
+    hp = h * cfg.ssm_head_dim
+    conv = (-1, [(hp, True), (n, False), (n, False)])
+    return {("layers", "in_proj"): (-1, [(hp, True), (hp, True), (n, False),
+                                         (n, False), (h, True)]),
+            ("layers", "conv_w"): conv, ("layers", "conv_b"): conv,
+            ("conv",): conv}
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)`` over the whole ``hp`` when each rank
+    holds ``1/T`` of it: the sum of squares is summed over 'model'."""
+    g = y * F.silu(z)
+    if local.tp_group() is None:
+        return L.rms_norm(g, w)
+    gf = g.float()
+    ss = local.reduce_partial(torch.sum(gf * gf, dim=-1, keepdim=True))
+    var = ss / (gf.shape[-1] * local.tp_degree())
+    return (gf * torch.rsqrt(var + eps) * w.float()).to(g.dtype)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  tail: torch.Tensor | None = None):
     """Depthwise causal conv, window CONV_K, by shift-and-add.  x: (B, S,
@@ -89,11 +135,20 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
                  state: Params | None = None):
     bsz, s, _ = x.shape
     _, h, n = _dims(cfg, tp)
+    h //= local.tp_degree()                           # this rank's heads
     ph = cfg.ssm_head_dim
     hp = h * ph
     st = state or {}
 
-    zxbcdt = L.rms_norm(x, p["ln"]) @ p["in_proj"]
+    xn = L.rms_norm(x, p["ln"])
+    w = p["in_proj"]
+    if local.tp_group() is None:
+        zxbcdt = xn @ w
+    else:
+        # column-parallel z | x | dt; B | C a replicated product
+        zx = local.column_in(xn) @ torch.cat([w[:, :2 * hp], w[:, -h:]], -1)
+        zxbcdt = torch.cat([zx[..., :2 * hp], xn @ w[:, 2 * hp:-h],
+                            zx[..., 2 * hp:]], -1)
     z = zxbcdt[..., :hp]
     xbc = zxbcdt[..., hp:hp + hp + 2 * n]
     dt_raw = zxbcdt[..., -h:]
@@ -101,8 +156,9 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
     xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                  st.get("conv"))
     xs = xbc[..., :hp].reshape(bsz, s, h, ph)
-    bmat = xbc[..., hp:hp + n]                        # (B, S, N), one group
-    cmat = xbc[..., hp + n:]
+    # (B, S, N), one group; read by this rank's heads only
+    bmat = local.copy_to_model(xbc[..., hp:hp + n])
+    cmat = local.copy_to_model(xbc[..., hp + n:])
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     log_decay = -dt * torch.exp(p["a_log"])           # (B, S, H) <= 0
@@ -127,8 +183,9 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
 
     y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, hp)
-    y = L.rms_norm(y * F.silu(z), p["norm"])
-    return x + y @ p["out_proj"], {"conv": new_tail, "ssd": new_ssd}
+    y = _gated_norm(y, z, p["norm"])
+    return x + local.row_out(y @ p["out_proj"]), {"conv": new_tail,
+                                                  "ssd": new_ssd}
 
 
 def _shared_attn(shared: Params, cfg: ModelConfig, x, *, positions, tp,
@@ -168,6 +225,14 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
         "head": {"table": L._normal(gen, (cfg.padded(tp).vocab, cfg.d_model),
                                     0.02, dtype, device)},
     }
+
+
+def specs(cfg: ModelConfig) -> Params:
+    blk = spec_map(lambda s: P(None, None, *s), _mamba_specs())
+    shared = {"ln_attn": P(None), "ln_mlp": P(None),
+              "attn": L.attn_specs(cfg), "mlp": L.mlp_specs()}
+    return {"embed": L.embed_specs(), "layers": blk, "shared": shared,
+            "final_norm": P(None), "head": L.embed_specs()}
 
 
 def _run(params: Params, cfg: ModelConfig, x, *, positions, tp, impl,
@@ -227,6 +292,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
     }
 
 
+def cache_specs(cfg: ModelConfig) -> Params:
+    kv = spec_map(lambda s: P(None, *s), L.kv_cache_specs(cfg))
+    return {"conv": P(None, None, L.BATCH_AXES, None, TP),
+            "ssd": P(None, None, L.BATCH_AXES, TP, None, None),
+            "attn": kv}
+
+
 def init_prefill_cache(cfg: ModelConfig, batch: int, seq: int, tp: int = 1,
                        dtype=None, device="cuda") -> Params:
     """Batch-1 prefill caches: conv/SSD states are O(1) in sequence length;
@@ -262,6 +334,16 @@ def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
                               device=device),
         L.init_paged_kv_pool(cfg, rows, tp, dtype, device="meta"))
     return cache
+
+
+def paged_cache_specs(cfg: ModelConfig) -> Params:
+    """Specs mirroring :func:`init_paged_cache`: per-slot conv/SSD states
+    keep their dense specs; the pooled attention KV gains the group axis
+    over the kv-pool specs."""
+    pool = spec_map(lambda s: P(None, *s), L.paged_kv_pool_specs(cfg))
+    return {"conv": P(None, None, L.BATCH_AXES, None, TP),
+            "ssd": P(None, None, L.BATCH_AXES, TP, None, None),
+            "attn": pool}
 
 
 def paged_slot_axes(cfg: ModelConfig) -> Params:
@@ -300,6 +382,3 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     return _run(params, cfg, x, positions=positions, tp=tp, impl=impl,
                 cache=cache, cache_pos=cpos, pages=pages), cache
 
-
-specs = cache_specs = paged_cache_specs = L.deferred(
-    "A.8", "tensor-parallel specs")

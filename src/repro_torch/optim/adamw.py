@@ -11,8 +11,14 @@ float32 temporaries stay small whatever the leaf (a layer-stacked leaf of a
 full-width model holds gigabytes); the arithmetic is elementwise, so the
 result is the same as over the whole leaf.
 
-Sharded optimizer state (``init_specs``, the reference's ZeRO layout) is
-not ported yet (ROADMAP A.8).
+On a mesh (:meth:`AdamW.shard`) the optimizer is ZeRO-1: the params are
+each rank's compute view (``distributed.local``; replicated over 'data'),
+the moments this view's slice over 'data' along the dim the param's spec
+shards over 'data' (``init_specs``: the moments keep the params' full
+specs, the params take ``zero1_specs``).  Each rank updates its slice of
+every param and the slices are all-gathered over 'data'.  The grads'
+global norm sums each leaf's squares over the 'model' ranks where the
+leaf is split over 'model' (once where it is replicated).
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models.layers import deferred
+from repro_torch.distributed import local
+from repro_torch.distributed.sharding import P, mesh_dims_of, prune_specs
 from repro_torch.models.tree import leaves, tree_map
 
 Params = Any
@@ -72,6 +79,58 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+class _Leaf:
+    """How one param leaf lies on the mesh: the slice of its compute view
+    that this rank's moments hold (``sl``, None: the whole leaf) along
+    ``dim``, and which of its elements are split over 'model' (for the
+    global norm): ``split`` True/False, or a list of (length, split)
+    segments of dim ``seg_dim``."""
+
+    def __init__(self, spec, seg, mesh):
+        names = tuple(mesh.mesh_dim_names)
+        self.data = local.mesh_axis(mesh, "data")
+        self.model = local.mesh_axis(mesh, "model")
+        dims = mesh_dims_of(prune_specs(spec, ("data",)), names)
+        self.dim = next((d for d, m in enumerate(dims) if m), None)
+        self.seg = seg if self.model is not None else None
+        self.split = self.model is not None and any(
+            mesh_dims_of(prune_specs(spec, ("model",)), names))
+
+    def slice(self, t: torch.Tensor):
+        """(dim, start, length) of this rank's ZeRO-1 slice of the
+        compute-view leaf ``t``; None where the moments are whole."""
+        if self.dim is None or self.data is None:
+            return None
+        self.length = t.shape[self.dim]
+        start, n = local.chunk(self.length, self.data.size, self.data.rank)
+        return self.dim, start, n
+
+    def gather(self, mine: torch.Tensor) -> torch.Tensor:
+        """The compute-view leaf from each rank's slice ``mine``."""
+        if self.dim is None or self.data is None:
+            return mine
+        sizes = [local.chunk(self.length, self.data.size, i)[1]
+                 for i in range(self.data.size)]
+        return local.all_gather(mine, self.data.group, self.dim, sizes)
+
+    def sq_parts(self, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sum of squares over the 'model'-split elements, over the
+        replicated ones)."""
+        sq = lambda x: torch.sum(torch.square(x.float()))
+        zero = torch.zeros((), device=g.device)
+        if self.seg is None:
+            return (sq(g), zero) if self.split else (zero, sq(g))
+        dim, segs = self.seg
+        split, rep, at = zero, zero, 0
+        for length, is_split in segs:
+            n = length // self.model.size if is_split else length
+            part = sq(g.narrow(dim % g.dim(), at, n))
+            split, rep = (split + part, rep) if is_split else (split,
+                                                              rep + part)
+            at += n
+        return split, rep
+
+
 class AdamW:
     def __init__(self, lr: float | Callable = 3e-4, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
@@ -82,16 +141,86 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
+        self.mesh = None
+        self._specs = None
+        self._leaves: dict[tuple, _Leaf] = {}
+
+    def shard(self, mesh, param_specs, segments: dict | None = None
+              ) -> "AdamW":
+        """Make this optimizer ZeRO-1 on ``mesh`` for params laid out by
+        ``param_specs`` (the family's full specs; ``segments`` its
+        ``compute_segments``).  Returns self."""
+        segments = segments or {}
+        self.mesh, self._specs = mesh, param_specs
+        self._leaves = {}
+
+        def note(_spec, spec, path):
+            key = tuple(k for k in path if isinstance(k, str))
+            self._leaves[path] = _Leaf(spec, segments.get(key), mesh)
+            return spec
+        local.zip_specs(note, param_specs, param_specs)
+        return self
+
+    def _lays(self, tree) -> list[_Leaf]:
+        """The :class:`_Leaf` of each leaf of a params-shaped ``tree``, in
+        ``leaves(tree)`` order."""
+        out = []
+        local.zip_specs(lambda t, s, path: out.append(self._leaves[path]),
+                         tree, self._specs)
+        return out
 
     def init(self, params: Params) -> OptState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        """Zero moments: on a mesh, this rank's slice of each."""
+        def zeros(p, lay=None):
+            sl = None if lay is None else lay.slice(p)
+            shape = list(p.shape)
+            if sl is not None:
+                shape[sl[0]] = sl[2]
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
         dev = next(iter(leaves(params))).device
-        return OptState(torch.zeros((), dtype=torch.int32, device=dev),
-                        tree_map(zeros, params), tree_map(zeros, params))
+        if self._specs is None:
+            m, v = tree_map(zeros, params), tree_map(zeros, params)
+        else:
+            lays = iter(self._lays(params))
+            m = tree_map(lambda p: zeros(p, next(lays)), params)
+            lays = iter(self._lays(params))
+            v = tree_map(lambda p: zeros(p, next(lays)), params)
+        return OptState(torch.zeros((), dtype=torch.int32, device=dev), m, v)
 
-    init_specs = staticmethod(deferred(
-        "A.8", "optimizer-state sharding specs for a device mesh"))
+    def scatter_moments(self, tree: Params) -> Params:
+        """This rank's ZeRO-1 slices of a compute-view moment tree."""
+        lays = iter(self._lays(tree))
+
+        def mine(t):
+            sl = next(lays).slice(t)
+            return t if sl is None else t.narrow(*sl).contiguous()
+        return tree_map(mine, tree)
+
+    def gather_moments(self, tree: Params) -> Params:
+        """The compute-view moment tree from each rank's slices (after
+        :meth:`init` or :meth:`scatter_moments` on this layout)."""
+        lays = iter(self._lays(tree))
+        return tree_map(lambda t: next(lays).gather(t), tree)
+
+    @staticmethod
+    def init_specs(param_specs: Params) -> OptState:
+        """Specs of :meth:`init`'s state: the moments keep the params'
+        full (FSDP) specs, which is ZeRO-1 where the params take
+        ``zero1_specs``."""
+        return OptState(P(), param_specs, param_specs)
+
+    def _global_norm(self, grads: Params) -> torch.Tensor:
+        if self._specs is None:
+            return global_norm(grads)
+        split = rep = None
+        for g, lay in zip(leaves(grads), self._lays(grads)):
+            a, b = lay.sq_parts(g)
+            split = a if split is None else split + a
+            rep = b if rep is None else rep + b
+        model = local.mesh_axis(self.mesh, "model")
+        if model is not None:
+            split = local.all_reduce(split, model.group)
+        return torch.sqrt(split + rep)
 
     @torch.no_grad()
     def update(self, grads: Params, state: OptState, params: Params
@@ -99,7 +228,7 @@ class AdamW:
         """One AdamW step over ``params`` (and ``state``'s moments), in
         place; returns (params, the new state, the grads' global norm
         before clipping)."""
-        gnorm = global_norm(grads)
+        gnorm = self._global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0) \
             if self.clip_norm > 0 else torch.ones((), device=gnorm.device)
         step = state.step + 1
@@ -118,11 +247,23 @@ class AdamW:
             m.copy_(m2)
             v.copy_(v2)
 
-        for p, g, m, v in zip(leaves(params), leaves(grads),
-                              leaves(state.m), leaves(state.v)):
+        lays = (self._lays(params) if self._specs is not None
+                else [None] * len(list(leaves(params))))
+        for p, g, m, v, lay in zip(leaves(params), leaves(grads),
+                                   leaves(state.m), leaves(state.v), lays):
             if not p.is_contiguous():
                 raise ValueError("AdamW.update updates params in place "
                                  "and needs contiguous leaves")
-            for sl in _slices(p, g.contiguous(), m, v):
-                upd(*sl)
+            sl = None if lay is None else lay.slice(p)
+            if sl is None:
+                for part in _slices(p, g.contiguous(), m, v):
+                    upd(*part)
+                continue
+            # ZeRO-1: update this rank's slice, then gather the slices
+            dim, start, n = sl
+            mine = p.narrow(dim, start, n).contiguous()
+            for part in _slices(mine, g.narrow(dim, start, n).contiguous(),
+                                m, v):
+                upd(*part)
+            p.copy_(lay.gather(mine))
         return params, OptState(step, state.m, state.v), gnorm

@@ -123,8 +123,22 @@ def test_restore_takes_the_callers_dtype_and_opt_state(tmp_path):
     assert p2["w"].dtype == torch.bfloat16
     assert torch.equal(p2["w"], params["w"])
     assert torch.equal(s2.m["w"], state.m["w"])
-    with pytest.raises(NotImplementedError, match="A.8"):
-        mgr.restore(1, like=(fresh, opt.init(fresh)), mesh=object())
+    # onto a (one-rank) mesh: DTensors laid out by the specs, same values
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed.local import full_tensor
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    specs = {"w": P("data", "model"), "n": P(None)}
+    p3, s3 = mgr.restore(1, like=(fresh, opt.init(fresh)), mesh=mesh,
+                         specs=(specs, opt.init_specs(specs)))
+    assert isinstance(p3["w"], DTensor)
+    assert tuple(p3["w"].placements) == (Shard(0), Shard(1))
+    assert torch.equal(full_tensor(p3["w"]), params["w"])
+    assert torch.equal(full_tensor(s3.v["n"]), state.v["n"])
+    with pytest.raises(ValueError, match="both mesh= and specs="):
+        mgr.restore(1, like=(fresh, opt.init(fresh)), mesh=mesh)
 
 
 def test_payload_roundtrip_and_corrupt_payload_skipped(tmp_path):

@@ -65,7 +65,12 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.analysis.kv_sanitizer", "repro_torch.launch.train",
             "repro_torch.ft.checkpoint", "repro_torch.optim.adamw",
             "repro_torch.optim.compression",
-            "repro_torch.data.pipeline"} <= set(mods)
+            "repro_torch.data.pipeline", "repro_torch.distributed",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.context",
+            "repro_torch.distributed.local",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.launch.mesh"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},

@@ -10,7 +10,7 @@ reference's, on the CPU, from the same numpy inputs.
   ``jnp.round`` both round half to even), the compressed grads equal and
   the residual within float32 rounding; error feedback stays unbiased.
 * ``SyntheticLM`` batches bit-identical at several steps and seeds;
-  ``Prefetcher`` in order; the mesh-bound batchers raise naming A.8.
+  ``Prefetcher`` in order; the mesh-bound batchers give a rank its rows.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -119,8 +119,11 @@ def test_adamw_clipping_bounds_update():
     _, _, gnorm = opt.update({"x": torch.tensor([1e4, 0.0, 0.0])}, state,
                              params)
     assert float(gnorm) == pytest.approx(1e4)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        opt.init_specs({"x": None})
+    # the moments keep the params' full specs (ZeRO-1's layout)
+    from repro_torch.distributed.sharding import P
+    specs = {"x": P("data", "model")}
+    got = opt.init_specs(specs)
+    assert got.step == P() and got.m == specs and got.v == specs
 
 
 @pytest.mark.parametrize("step", [0, 1, 3, 10, 11, 50, 99, 100, 150])
@@ -197,10 +200,12 @@ def test_data_step_determinism():
     a, b = d.batch(5), d.batch(5)
     np.testing.assert_array_equal(a["tokens"], b["tokens"])
     assert not np.array_equal(a["tokens"], d.batch(6)["tokens"])
-    with pytest.raises(NotImplementedError, match="A.8"):
-        d.global_arrays(0, None)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        make_global_batch(d, None, 0)
+    # on a one-rank mesh the rank's rows are the whole batch, bit for bit
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    for got in (d.global_arrays(5, mesh), make_global_batch(d, mesh, 5)):
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(got[k], a[k])
 
 
 def test_prefetcher_order():

@@ -195,15 +195,26 @@ def test_ragged_prompt_matches_token_by_token_decode(arch, n):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_unported_variants_raise(arch):
-    """The tensor-parallel specs raise (ROADMAP A.8); the paged cache is
-    ported: rwkv6 pages nothing (its paged cache is its dense cache), and
-    zamba2 pools the shared-attention KV beside per-slot conv/SSD state,
-    whose decode through a page table equals the dense decode."""
+    """The tensor-parallel specs are ported: each spec tree has its tree's
+    keys and one entry per dim of each leaf; the paged cache is ported:
+    rwkv6 pages nothing (its paged cache is its dense cache), and zamba2
+    pools the shared-attention KV beside per-slot conv/SSD state, whose
+    decode through a page table equals the dense decode."""
+    from repro_torch.distributed.local import zip_specs
     cfg, _, _, params = _model(arch)
     mod = family_module(cfg)
-    for fn in (mod.specs, mod.cache_specs, mod.paged_cache_specs):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            fn(cfg)
+    for fn, tree in ((mod.specs, params),
+                     (mod.cache_specs, mod.init_cache(cfg, 1, 8,
+                                                      device="cpu")),
+                     (mod.paged_cache_specs,
+                      mod.init_paged_cache(cfg, 1, 8, 8, device="cpu"))):
+        specs = fn(cfg)
+        pairs = []
+        zip_specs(lambda t, s, path: pairs.append((t, s, path)), tree,
+                   specs)
+        assert len(pairs) == len(list(leaves(specs))) > 0
+        for leaf, spec, path in pairs:
+            assert len(spec) == leaf.dim(), (fn.__name__, path, spec)
     cache = mod.init_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         mod.pack_slot_cache(cfg, cache, 4, 5)

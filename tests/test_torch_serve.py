@@ -249,18 +249,26 @@ def test_stall_raises_with_diagnostics():
 
 
 def test_encoder_and_unported_options_raise(tmp_path, capsys):
-    """The encoder and ``--mesh`` raise; ``--paged``, ``--sanitize`` and
-    the tuned-blocks flags (``--tuned-app`` with a DB the port's tuner
-    wrote) serve."""
+    """The encoder raises, and so do a mesh that is not a ``DeviceMesh``
+    and a ``--mesh`` whose size is not the process group's (one rank
+    here); ``--mesh data=1,model=1`` serves on a one-rank mesh;
+    ``--paged``, ``--sanitize`` and the tuned-blocks flags (``--tuned-app``
+    with a DB the port's tuner wrote) serve."""
     cfg, _, _, params = _model("qwen3-8b")
     with pytest.raises(ValueError, match="encoder-only"):
         ServeEngine(reduced(get_config("hubert-xlarge")), params)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeEngine(cfg, params, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         serve_requests(cfg, params, [], paged=True, mesh=object())
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--smoke", "--device", "cpu", "--mesh=data=1,model=1"])
+    with pytest.raises(SystemExit, match="wants 2 ranks, the process "
+                                         "group has 1"):
+        serve.main(["--smoke", "--device", "cpu", "--mesh=data=1,model=2"])
+    with pytest.raises(SystemExit, match="exactly data= and model="):
+        serve.main(["--smoke", "--device", "cpu", "--mesh=model=1"])
+    serve.main(["--smoke", "--device", "cpu", "--mesh=data=1,model=1",
+                "--requests", "2", "--max-new", "2"])
+    assert "mesh: data=1xmodel=1" in capsys.readouterr().out
     done, stats = serve_requests(cfg, params, [], paged=True)
     assert done == [] and stats["status_counts"] == {}
 
