@@ -163,7 +163,31 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      from the two ranks and restored onto (a)'s mesh as DTensors, every
      leaf equal.  Tokens/s and the collectives' calls and seconds are
      printed beside the mesh-less runs: two ranks on one card measure the
-     plumbing, not the speed of tensor parallelism.
+     plumbing, not the speed of tensor parallelism;
+ 21. analysis and the dry run (the CPU parts in subprocesses, with the
+     card hidden, while (b) runs): (a) ``python -m repro_torch.analysis``
+     over every config and mesh and the golden schedule must exit 0, and
+     every arch's specs must turn into placements on a fake 16x16 mesh;
+     (b) two positive controls (a scalar read, a blocking upload) must be
+     reported by the card at their line and named by the audit; then the
+     serving hot paths of zamba2-2.7b and qwen3-8b at phases 8 and
+     17's sizes (dense decode, paged decode, a 1024-token prefill, the slot
+     write) each run once on the card under
+     ``torch.cuda.set_sync_debug_mode("warn")``: every sync the card
+     reports must be a ``trace/host-sync`` finding of ``audit_program`` on
+     the same program at the same shapes, with the launches of that run
+     (zamba2's prefill one ``mamba2`` a Mamba layer, qwen3's none); then
+     ``audit_hot_paths`` on the card for their reduced configs, where a
+     serving program may have no sync the card reports and the watch
+     misses;
+     (c) ``python -m repro_torch.launch.dryrun`` on qwen3-8b x train_4k
+     (16x16), zamba2-2.7b x decode_32k (16x16 and 2x16x16) and rwkv6-3b x
+     long_500k (16x16), then the roofline of their records; (d) the dry run
+     on one device for phase 19 (c)'s training config, whose argument bytes
+     must equal phase 19's params, moments, step and batch to the byte
+     (its predicted peak printed beside phase 19's), and for phase 7's
+     forward, its FLOP count beside ``model_flops`` and its compute bound
+     beside phase 7's seconds.
 
 Each model is freed before the next one is drawn.
 
@@ -203,12 +227,11 @@ APPS = [
 TUNER_FLAGS = ["--measure", "--backend", "cuda", "--trials", "6", "--init", "3",
                "--db", str(DB_PATH)]
 
-# H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s float32 without tensor
-# cores (every kernel here runs float32 FMA); the PCIe part: 2.0 TB/s, 51.
-CARD_RATES = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
-# dense bfloat16 tensor-core peak (data sheet, no sparsity): the least time
-# for bfloat16 work, whatever unit a kernel uses
-BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}
+# the card's HBM rate and peak FLOP/s (float32 without tensor cores: every
+# intrinsic kernel here runs float32 FMA; bfloat16 on tensor cores, the
+# least time for bfloat16 work whatever unit a kernel uses) come from the
+# data sheet's numbers in repro_torch.launch.roofline.CARDS, which the
+# roofline uses too
 
 # (rtol, atol) of tests/test_kernels.py:30-60.  Not widened: the sums here
 # are longer (K up to 2^24) but each output's magnitude grows with them, so
@@ -388,6 +411,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--phase20-rank"]:
         return phase20_rank()
+    if sys.argv[1:2] == ["--phase21-cell"]:
+        return phase21_cell(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase21-placements"]:
+        return phase21_placements()
     import torch
     require(torch.cuda.is_available(), "no CUDA device: this smoke runs on the "
             "card only")
@@ -403,7 +430,9 @@ def main() -> int:
           f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rates = CARD_RATES["pcie" if "PCIe" in name else "sxm"]
+    from repro_torch.launch.roofline import card_rates
+    card = card_rates(name)
+    rates = (card["hbm"], card["f32"])
 
     phase("2. build")
     from repro_torch.kernels import cuda_lib
@@ -483,7 +512,7 @@ def main() -> int:
     phase("6. flash attention against its plain version")
     check_flash(torch)
 
-    bf16_peak = BF16_PEAK["pcie" if "PCIe" in name else "sxm"]
+    bf16_peak = card["bf16"]
     fwd_launches, attn_launches, fwd_seconds = {}, {}, {}
     for first, arch in zip((7, 11, 13), ARCHS):
         if arch == "rwkv6-3b":
@@ -558,7 +587,7 @@ def main() -> int:
 
     phase("19. training and resume: the attention VJP, a train step card vs "
           "CPU, zamba2-2.7b at full width, the train CLI, co-design resume")
-    run_training(torch)
+    train = run_training(torch)
     torch.cuda.empty_cache()
 
     phase("20. distributed on the one card: a one-rank mesh, two ranks "
@@ -568,6 +597,12 @@ def main() -> int:
     tp = run_distributed(torch, paged, fwd_seconds)
     flash_row["tp2_launches_per_rank"] = tp["flash_attention"]
     mamba_row["tp2_paged_launches_per_rank"] = tp["mamba2"]
+
+    phase("21. analysis: the lint CLI and placements on a fake 16x16 mesh, "
+          "the hot-path audit on the card, the dry run on the production "
+          "meshes and held against phases 7 and 19")
+    audit = run_analysis(torch, fwd_seconds, train, bf16_peak)
+    mamba_row["audit_prefill_launches"] = audit["zamba2-2.7b"]["prefill"]
 
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
     require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
@@ -2166,9 +2201,13 @@ def run_full_width_training(torch) -> dict:
             f"non-finite loss or grad norm: {losses}, {norms}")
     require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     require(peak < TRAIN_PEAK_LIMIT, f"peak memory {peak / 1e9:.2f} GB")
+    # phase 21 (d) holds the dry run's argument bytes to these
+    step_bytes, batch_bytes = nbytes(state.step), nbytes(batch)
     del params, state, m
     torch.cuda.empty_cache()
-    return {"losses": losses, "ms": [x * 1e3 for x in times], "peak": peak}
+    return {"losses": losses, "ms": [x * 1e3 for x in times], "peak": peak,
+            "state_bytes": state_bytes, "step_bytes": step_bytes,
+            "batch_bytes": batch_bytes}
 
 
 def _ckpt_bytes(ckdir: Path, step: int) -> dict[str, bytes]:
@@ -2321,14 +2360,16 @@ def run_codesign_resume(torch) -> None:
           f"{sol.describe()}; the same as the first run's: {same}")
 
 
-def run_training(torch) -> None:
+def run_training(torch) -> dict:
+    """Phase 19; returns (c)'s state bytes and peak for phase 21 (d)."""
     t0 = time.perf_counter()
     check_attention_vjp(torch)
     check_train_step_vs_cpu(torch)
-    run_full_width_training(torch)
+    full = run_full_width_training(torch)
     run_train_cli(torch)
     run_codesign_resume(torch)
     print(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    return full
 
 
 # -- phase 20: distributed on the one card ------------------------------------
@@ -2367,7 +2408,7 @@ def _serve_paged(torch, cfg, params, mesh=None, impl="cuda") -> dict:
 
 
 def _collectives(stats: dict) -> str:
-    return ", ".join(f"{k} {n} calls {sec:.3f} s" for k, (n, sec) in
+    return ", ".join(f"{k} {n} calls {sec:.3f} s" for k, (n, sec, *_) in
                      sorted(stats.items())) or "none"
 
 
@@ -2719,6 +2760,390 @@ def run_distributed(torch, paged17: dict, fwd_seconds: dict) -> dict:
     print(f"  phase 20 took {time.perf_counter() - t_all:.1f} s")
     return {"flash_attention": q0["launches"]["flash_attention"],
             "mamba2": z0["launches"]["mamba2"]}
+
+
+# -- phase 21: analysis and the dry run -----------------------------------------
+
+# (b): the serving programs at phases 8 and 17's sizes: 4 slots of 2048
+# rows at ragged positions (each slot's pages mapped under its rows, in
+# phase 17's pages of 16), one 1024-token prompt (phase 8's longest)
+AUDIT_POS = (1024, 517, 130, 2000)
+AUDIT_PROMPT = 1024
+AUDIT_ARCHS = ("zamba2-2.7b", "qwen3-8b")
+# (c): the dry-run cells on the production meshes
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", ()),
+                ("zamba2-2.7b", "decode_32k", ("--both-meshes",)),
+                ("rwkv6-3b", "long_500k", ()))
+
+
+def _spawn(args: list[str], tag: str):
+    """``python <args>`` from the checkout with the card hidden, its output
+    in build/phase21/<tag>.{out,err}."""
+    logs = ROOT / "build" / "phase21"
+    logs.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    so = open(logs / f"{tag}.out", "w+")
+    se = open(logs / f"{tag}.err", "w+")
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            text=True, stdout=so, stderr=se)
+    return SimpleNamespace(proc=proc, so=so, se=se, tag=tag)
+
+
+def _finish(job, deadline: float) -> str:
+    """The job's standard output once it ends (killed at ``deadline``, a
+    ``time.perf_counter`` reading); it must exit 0."""
+    try:
+        job.proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        job.proc.kill()
+        job.proc.wait()
+    job.so.seek(0)
+    job.se.seek(0)
+    out, err = job.so.read(), job.se.read()
+    job.so.close()
+    job.se.close()
+    require(job.proc.returncode == 0, f"phase 21 {job.tag} exited "
+            f"{job.proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def run_analysis(torch, fwd_seconds: dict, train: dict,
+                 bf16_peak: float) -> dict:
+    """Phase 21: (a), (c) and (d) on the CPU in subprocesses while (b)
+    audits the serving programs on the card; returns (b)'s mamba2
+    launches by arch and program."""
+    t_all = time.perf_counter()
+    smoke = str(ROOT / "chip_smoke.py")
+    jobs = {}
+    try:
+        jobs["lint"] = _spawn(["-m", "repro_torch.analysis", "--json",
+                               str(ROOT / "build" / "phase21_findings.json")],
+                              "lint")
+        jobs["placements"] = _spawn([smoke, "--phase21-placements"],
+                                    "placements")
+        for arch, shape, extra in DRYRUN_CELLS:
+            jobs[arch] = _spawn(["-m", "repro_torch.launch.dryrun", "--arch",
+                                 arch, "--shape", shape, *extra],
+                                f"dryrun_{arch}")
+        for which in ("train", "forward"):
+            jobs[which] = _spawn([smoke, "--phase21-cell", which],
+                                 f"cell_{which}")
+        print("(b) the serving hot paths on the card (the CPU parts run "
+              "meanwhile)")
+        audit = run_audit(torch)
+        print(f"  (b) took {time.perf_counter() - t_all:.1f} s")
+        deadline = time.perf_counter() + 600
+        outs = {k: _finish(j, deadline) for k, j in jobs.items()}
+        print(f"  the CPU parts ended {time.perf_counter() - t_all:.1f} s "
+              f"into the phase")
+    finally:
+        for j in jobs.values():
+            if j.proc.poll() is None:
+                j.proc.kill()
+                j.proc.wait()
+
+    print("(a) python -m repro_torch.analysis (every config x {no mesh, "
+          "data=2,model=4}, the golden schedule): exit 0")
+    lint = outs["lint"].strip().splitlines()
+    for line in lint:
+        if line.startswith(("sharding ", "golden ")):
+            print("  " + line)
+    print("  " + lint[-1])
+    for line in outs["placements"].strip().splitlines():
+        print("  " + line)
+
+    print("(c) the dry run on the production meshes (fake process groups, "
+          "fake tensors), then the roofline")
+    check_dryrun([outs[a] for a, _, _ in DRYRUN_CELLS])
+
+    print("(d) the dry run on one device against phases 19 and 7")
+    check_dryrun_vs_card(json.loads(outs["train"].strip().splitlines()[-1]),
+                         json.loads(outs["forward"].strip().splitlines()[-1]),
+                         train, fwd_seconds, bf16_peak)
+    print(f"  phase 21 took {time.perf_counter() - t_all:.1f} s")
+    return audit
+
+
+def _sync_controls(torch, trace_audit) -> None:
+    """Phase 21 (b)'s positive controls: programs that do sync on the card
+    (a scalar read of a device tensor, a blocking upload of host data).
+    The card must report each at the program's line, and the audit of the
+    same program must name that line: so a serving program's 0 is a
+    reading, not a watch that cannot see."""
+    def scalar_read(t):
+        return t.sum().item()
+
+    def blocking_upload(t):
+        return t + torch.ones(t.shape).to("cuda")
+
+    x = torch.arange(4096.0, device="cuda")
+    for fn in (scalar_read, blocking_upload):
+        fn(x)                                               # warm-up
+        torch.cuda.synchronize()
+        _, syncs = trace_audit.reported_syncs(fn, x)
+        found = trace_audit.sync_sources(
+            trace_audit.audit_program(fn, x, site=fn.__name__))
+        line = f"chip_smoke.py:{fn.__code__.co_firstlineno + 1}"
+        print(f"  control {fn.__name__}: the card reported {syncs}, the "
+              f"audit names {sorted(found)}")
+        require(syncs and set(syncs) == {line}, f"control {fn.__name__}: "
+                f"the card reported {syncs}, not a sync at {line}")
+        require(found == {line}, f"control {fn.__name__}: the audit names "
+                f"{sorted(found)}, not {line}")
+
+
+def _card_audit(torch, trace_audit) -> None:
+    """Phase 21 (b): ``audit_hot_paths`` on the card (the CLI's ``--audit``
+    default) for reduced configs of the audited archs: a sync the card
+    reports that the watch missed is a finding, and a serving program
+    may have none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+
+    for arch in AUDIT_ARCHS:
+        t0 = time.perf_counter()
+        got = trace_audit.audit_hot_paths(reduced(get_config(arch)))
+        card = [f for f in got if "reported by the card" in f.detail]
+        print(f"  audit_hot_paths({arch}, reduced) on the card: "
+              f"{len(got)} finding(s), {len(card)} reported by the card "
+              f"alone ({time.perf_counter() - t0:.1f} s)")
+        for f in got:
+            print(f"    {f}")
+        serving = [f for f in card if not f.site.endswith("/train_step")]
+        require(not serving, f"{arch}: the card reported serving syncs "
+                f"that the audit's watch missed: {[str(f) for f in serving]}")
+
+
+def run_audit(torch) -> dict:
+    """Phase 21 (b): the positive controls; each serving program run once
+    on the card under the sync debug mode after a warm-up, its launches
+    counted from that run; every sync the card reports must be a
+    ``trace/host-sync`` finding of ``audit_program`` on the same program
+    and inputs; then ``audit_hot_paths`` on the card at reduced sizes."""
+    import numpy as np
+
+    from repro_torch.analysis import trace_audit
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _write_slot
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import family_module
+
+    _sync_controls(torch, trace_audit)
+
+    slots, max_seq, ps = SERVE["slots"], SERVE["max_seq"], PAGED["page_size"]
+    per_slot = max_seq // ps
+    pos = np.array(AUDIT_POS, np.int64)
+    row_map = np.full((slots, max_seq), -1, np.int32)
+    for s_, p_ in enumerate(pos):      # slot s owns pages s*128 onwards
+        rows = (s_ * per_slot * ps + np.arange(p_ + 1)).astype(np.int32)
+        row_map[s_, :p_ + 1] = rows
+    out = {}
+    for arch in AUDIT_ARCHS:
+        cfg = get_config(arch)
+        mod = family_module(cfg)
+        params = mod.init(cfg, seed=0, device="cuda")
+        decode_step = make_decode_step(cfg, impl="cuda")
+        prefill = make_prefill_step(cfg, impl="cuda", cache_len=max_seq)
+        cache = mod.init_cache(cfg, slots, max_seq, 1, device="cuda")
+        pcache = mod.init_paged_cache(cfg, slots, slots * per_slot * ps,
+                                      max_seq, 1, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        toks = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                             device="cuda")
+        prompt = torch.randint(0, cfg.vocab, (1, AUDIT_PROMPT),
+                               generator=gen, device="cuda")
+        axes = mod.cache_slot_axes(cfg)
+        with torch.no_grad():
+            _, slot_cache = prefill(params, prompt)
+
+        def decode(p, c, t, q):
+            return decode_step(p, c, t, q)
+
+        def paged(p, c, t, q, r):
+            return decode_step(p, c, t, q, r)
+
+        def write_slot(c, sc, slot):
+            _write_slot(c, sc, slot, axes)
+            return c
+
+        programs = {
+            "decode": (decode, (params, cache, toks, pos)),
+            "paged_decode": (paged, (params, pcache, toks, pos, row_map)),
+            "prefill": (prefill, (params, prompt)),
+            "write_slot": (write_slot, (cache, slot_cache, 0)),
+        }
+        out[arch] = {}
+        for name, (fn, args) in programs.items():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fn(*args)                                   # warm-up
+                torch.cuda.synchronize()
+                _read_launches(reset=True)
+                _, syncs = trace_audit.reported_syncs(fn, *args)
+                launches = {k: v for k, v in _read_launches().items() if v}
+                findings = trace_audit.audit_program(fn, *args,
+                                                     site=f"{arch}/{name}")
+            explained = trace_audit.sync_sources(findings)
+            print(f"  {arch} {name}: {len(syncs)} sync(s) reported by the "
+                  f"card {sorted(set(syncs)) or ''}; launches {launches}; "
+                  f"audit findings {len(findings)} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            for f in findings:
+                print(f"    {f}")
+            unexplained = set(syncs) - explained
+            require(not unexplained, f"{arch} {name}: the card reported "
+                    f"syncs at {sorted(unexplained)} that the audit does "
+                    f"not find")
+            want = ({"mamba2": cfg.n_layers}
+                    if (arch, name) == ("zamba2-2.7b", "prefill") else {})
+            require(launches == want, f"{arch} {name} launched {launches}, "
+                    f"not {want}")
+            out[arch][name] = launches.get("mamba2", 0)
+        del params, cache, pcache, slot_cache
+        torch.cuda.empty_cache()
+    _card_audit(torch, trace_audit)
+    return out
+
+
+def check_dryrun(outs: list[str]) -> None:
+    """Phase 21 (c): every cell printed OK; each record's per-device
+    figures and its roofline row."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models.config import SHAPES
+
+    records = []
+    for out in outs:
+        for line in out.strip().splitlines():
+            require(line.startswith("OK "), f"dry run: {line}")
+            print("  " + line)
+            records.append(json.loads(
+                (dryrun.ART_DIR / line.split("-> ")[-1]).read_text()))
+    require(len(records) == 4, f"{len(records)} dry-run records, not 4")
+    for rec in records:
+        row = roofline.build_row(rec)
+        m, ops = rec["memory"], rec["ops"]
+        useful = roofline.model_flops(get_config(rec["arch"]),
+                                      SHAPES[rec["shape"]]) / rec["n_devices"]
+        require(ops["dot_flops"] > 0 and m["argument_bytes"] > 0,
+                f"an empty record: {rec}")
+        print(f"  {rec['arch']} x {rec['shape']} on {rec['mesh']} "
+              f"({rec['rows_per_device']} rows a device): "
+              f"{ops['dot_flops']:.4g} matmul FLOP a device (MODEL_FLOPS "
+              f"{useful:.4g}), "
+              f"wire {ops['wire_bytes']:.4g} B over groups "
+              f"{ops['group_sizes']} spanning {ops['group_nodes']} nodes; "
+              f"argument {m['argument_bytes'] / 2**30:.3f} GiB, temp "
+              f"{m['temp_bytes'] / 2**30:.3f} GiB; terms compute "
+              f"{row.compute_s:.4g} s, memory {row.memory_s:.4g} s, "
+              f"collective {row.collective_s:.4g} s: {row.dominant}-bound, "
+              f"roofline fraction {row.roofline_fraction:.4f}")
+    md = ROOT / "build" / "phase21_roofline.md"
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
+                          "--all-meshes", "--emit", str(md)], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(SRC)},
+                         capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, f"roofline: {res.stderr[-2000:]}")
+    table = [ln for ln in res.stdout.splitlines() if ln.startswith("| ")]
+    for rec in records:
+        row = f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} |"
+        require(any(ln.startswith(row) for ln in table),
+                f"the roofline table has no row {row}")
+    print(f"  python -m repro_torch.launch.roofline: {len(table) - 2} rows "
+          f"(every record's among them) -> {md.relative_to(ROOT)}")
+
+
+def check_dryrun_vs_card(train_rec: dict, fwd_rec: dict, train: dict,
+                         fwd_seconds: dict, bf16_peak: float) -> None:
+    """Phase 21 (d): the dry run's argument bytes of phase 19 (c)'s
+    training config equal phase 19's params, moments, step and batch
+    bytes; the rest are readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models.config import ShapeCell
+
+    sb = train["state_bytes"]
+    want = sb["params"] + sb["m"] + sb["v"] + train["step_bytes"] \
+        + train["batch_bytes"]
+    m = train_rec["memory"]
+    print(f"  {train_rec['arch']} train 1 x {train_rec['seq_len']}, one "
+          f"device: argument bytes {m['argument_bytes']} predicted, phase "
+          f"19 params {sb['params']} + m {sb['m']} + v {sb['v']} + step "
+          f"{train['step_bytes']} + batch {train['batch_bytes']} = {want} "
+          f"measured; peak predicted (arguments + temporaries) "
+          f"{(m['argument_bytes'] + m['temp_bytes']) / 1e9:.2f} GB "
+          f"(temporaries {m['temp_bytes'] / 1e9:.2f} GB, phase 19's grads "
+          f"{sb['grads'] / 1e9:.2f} GB among them), phase 19 measured "
+          f"{train['peak'] / 1e9:.2f} GB; {train_rec['ops']['dot_flops']:.4g}"
+          f" matmul FLOP a step (trace {train_rec['trace_s']} s)")
+    require(m["argument_bytes"] == want, f"the dry run's argument bytes "
+            f"{m['argument_bytes']} != phase 19's {want}")
+    cfg = get_config(fwd_rec["arch"])
+    cell = ShapeCell(fwd_rec["shape"], fwd_rec["seq_len"], 1, "prefill")
+    count, useful = fwd_rec["ops"]["dot_flops"], model_flops(cfg, cell)
+    bound = count / bf16_peak
+    took = fwd_seconds[fwd_rec["arch"]]
+    # the counter takes the plain attention's full S x S products; the
+    # causal kernel computes the S (S + 1) / 2 unmasked scores' share
+    s_ = fwd_rec["seq_len"]
+    attn = 4 * s_ * s_ * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    causal = (count - attn + attn * (s_ + 1) / (2 * s_)) / bf16_peak
+    print(f"  {fwd_rec['arch']} forward 1 x {s_}, one "
+          f"device: {count:.6g} FLOP counted (the plain versions' matmuls "
+          f"and attention, {attn:.6g} of it the full S x S attention), "
+          f"MODEL_FLOPS {useful:.6g} (ratio {useful / count:.4f}); compute "
+          f"bound {bound * 1e3:.3f} ms at {bf16_peak / 1e12:.0f} TFLOP/s "
+          f"against phase 7's {took * 1e3:.1f} ms: {bound / took:.4f} of "
+          f"the roofline; attention counted causally {causal * 1e3:.3f} "
+          f"ms: {causal / took:.4f}")
+
+
+def phase21_cell(argv: list[str]) -> int:
+    """One of phase 21 (d)'s dry-run cells on one device (no mesh), its
+    record printed as JSON on the last line."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models.config import ShapeCell
+
+    if argv == ["train"]:
+        t = TRAIN_FULL
+        rec = lower_cell(t["arch"], ShapeCell(
+            f"train_{t['batch']}x{t['seq_len']}", t["seq_len"], t["batch"],
+            "train"), single=True)
+    elif argv == ["forward"]:
+        rec = lower_cell("qwen3-8b", ShapeCell(
+            f"forward_1x{FWD_TOKENS}", FWD_TOKENS, 1, "prefill"),
+            single=True)
+    else:
+        raise SystemExit(f"--phase21-cell train|forward, not {argv}")
+    print(json.dumps(rec))
+    return 0
+
+
+def phase21_placements() -> int:
+    """Phase 21 (a): every arch's specs linted on a fake 16x16 mesh: each
+    spec that passes the rules must turn into DTensor placements on it
+    (no ``sharding/no-placement``), and the params must be clean; the
+    caches' 4 slots do not divide over 'data' 16, which the lint reports
+    (as the reference's does) and nothing raises."""
+    from repro_torch.analysis.sharding_lint import R_PLACEMENT, lint_config
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import describe, make_production_mesh
+
+    bad = []
+    with fake_world(256):
+        mesh = make_production_mesh(device="cpu")
+        for arch in ARCH_IDS:
+            got = lint_config(get_config(arch), mesh=mesh)
+            rules = sorted({f.rule for f in got})
+            print(f"placements {arch} on {describe(mesh)}: {len(got)} "
+                  f"finding(s) {rules}")
+            bad += [f for f in got if f.rule == R_PLACEMENT or (
+                f.severity == "error" and "/params" in f.site)]
+    for f in bad:
+        print(f"  {f}")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -98,15 +98,28 @@ def tp_degree() -> int:
 # Collectives
 # ---------------------------------------------------------------------------
 
-#: per collective: [calls, seconds of host wall time, the wait for the
-#: slowest rank included], counted by :func:`_timed`
+#: per collective: [calls, seconds of host wall time (the wait for the
+#: slowest rank included), bytes, group size, ranks], counted by
+#: :func:`_timed`.  ``bytes`` sums the results' bytes (an all-gather's
+#: whole gathered buffer, an all-reduce's summed tensor in the dtype it was
+#: sent in): what the ring model of ``launch.op_analysis`` reads.  ``group
+#: size`` and ``ranks`` are those of the largest group the collective ran
+#: over (``ranks`` its global ranks, which say what fabric it crosses).
 STATS: dict[str, list] = {}
 
 
-def _timed(name: str):
-    """Count the calls of collective ``name`` and their wall time in
-    :data:`STATS` (a CUDA tensor's collective waits for the card first, so
-    the time is the collective's own)."""
+def _group_ranks(group) -> tuple[int, ...]:
+    if group is None:
+        return tuple(range(dist.get_world_size()))
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def _timed(name: str, group_of, wire_itemsize=lambda t: t.element_size()):
+    """Count the calls of collective ``name``, their wall time, bytes and
+    group (``group_of(args, kwargs)``) in :data:`STATS` (a CUDA tensor's
+    collective waits for the card first, so the time is the collective's
+    own).  ``wire_itemsize(out)`` is the bytes an element of the result
+    took on the wire."""
     def wrap(fn):
         @functools.wraps(fn)
         def run(x, *args, **kwargs):
@@ -116,15 +129,27 @@ def _timed(name: str):
             out = fn(x, *args, **kwargs)
             if out.is_cuda:
                 torch.cuda.synchronize(out.device)
-            entry = STATS.setdefault(name, [0, 0.0])
+            dt = time.perf_counter() - t0
+            group = group_of(args, kwargs)
+            entry = STATS.setdefault(name, [0, 0.0, 0, 0, ()])
             entry[0] += 1
-            entry[1] += time.perf_counter() - t0
+            entry[1] += dt
+            entry[2] += out.numel() * wire_itemsize(out)
+            n = dist.get_world_size(group)
+            if n > entry[3]:
+                entry[3], entry[4] = n, _group_ranks(group)
             return out
         return run
     return wrap
 
 
-@_timed("all_reduce")
+def _summed_itemsize(t: torch.Tensor) -> int:
+    """A bfloat16 or float16 sum travels in float32 (:func:`all_reduce`)."""
+    return 4 if t.dtype in (torch.bfloat16, torch.float16) \
+        else t.element_size()
+
+
+@_timed("all_reduce", lambda a, k: a[0], _summed_itemsize)
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of ``x`` over ``group``, as a new tensor.  A bfloat16 or
     float16 ``x`` is summed in float32 and rounded once, as one product
@@ -136,7 +161,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-@_timed("all_gather")
+@_timed("all_gather", lambda a, k: a[0])
 def all_gather(x: torch.Tensor, group, dim: int,
                sizes: list[int] | None = None) -> torch.Tensor:
     """The ranks' ``x`` concatenated on ``dim`` in rank order.  ``sizes``
@@ -158,7 +183,8 @@ def all_gather(x: torch.Tensor, group, dim: int,
     return torch.cat(outs, dim=dim)
 
 
-@_timed("broadcast")
+@_timed("broadcast",
+        lambda a, k: k.get("group", a[1] if len(a) > 1 else None))
 def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``x`` of global rank ``src`` on every rank of ``group``, in place."""
     dist.broadcast(x, src, group=group)

@@ -4,6 +4,7 @@ stacked on leading axes (one for the transformer and rwkv6, two for
 zamba2's groups), so a model walks them by index and gets views."""
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable
 
@@ -29,6 +30,22 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+def arrays(tree):
+    """The tensor and numpy-array leaves of a tree of dicts, lists, tuples
+    (named ones too) and dataclasses, in order; other leaves are skipped."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from arrays(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from arrays(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from arrays(getattr(tree, f.name))
 
 
 def layer(tree, *idx: int):

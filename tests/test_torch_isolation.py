@@ -70,7 +70,11 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.distributed.context",
             "repro_torch.distributed.local",
             "repro_torch.distributed.pipeline",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.analysis.__main__",
+            "repro_torch.analysis.sharding_lint",
+            "repro_torch.analysis.trace_audit",
+            "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+            "repro_torch.launch.roofline"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
