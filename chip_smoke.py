@@ -179,15 +179,27 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      (zamba2's prefill one ``mamba2`` a Mamba layer, qwen3's none); then
      ``audit_hot_paths`` on the card for their reduced configs, where a
      serving program may have no sync the card reports and the watch
-     misses;
+     misses, and the train step no sync at all;
      (c) ``python -m repro_torch.launch.dryrun`` on qwen3-8b x train_4k
-     (16x16), zamba2-2.7b x decode_32k (16x16 and 2x16x16) and rwkv6-3b x
-     long_500k (16x16), then the roofline of their records; (d) the dry run
+     (16x16, in the FSDP layout and in ZeRO-1's: FSDP's argument bytes a
+     rank must lie below ZeRO-1's), zamba2-2.7b x decode_32k (16x16 and
+     2x16x16) and rwkv6-3b x long_500k (16x16), then the roofline of
+     their records; (d) the dry run
      on one device for phase 19 (c)'s training config, whose argument bytes
      must equal phase 19's params, moments, step and batch to the byte
      (its predicted peak printed beside phase 19's), and for phase 7's
      forward, its FLOP count beside ``model_flops`` and its compute bound
-     beside phase 7's seconds.
+     beside phase 7's seconds;
+ 22. FSDP training: zamba2-2.7b at full width, its depth cut to
+     ``FSDP_TRAIN``'s 3 of 9 layer groups, float32, one AdamW step on 2 x
+     512 tokens: (a) in one process; (b) on two ranks sharing the card
+     (``chip_smoke.py --phase22-rank``, gloo), one row a rank, with the
+     params and moments each rank's shard by the specs (each layer
+     gathered where it runs): loss and grad norm within ``FSDP_TOL`` of
+     (a)'s; then the same step with ZeRO-1's layout, each rank printing
+     its param and moment bytes, peak memory, step time and collectives
+     for both; (c) (b)'s FSDP checkpoint restored onto a one-rank mesh,
+     every leaf bit for bit (b)'s whole params.
 
 Each model is freed before the next one is drawn.
 
@@ -385,6 +397,19 @@ TP_FWD_COSINE = 0.9995
 # and an element whose grad is at its rounding noise moves by up to that
 DP_TOL = dict(loss=1e-5, grad=1e-4, param_updates=0.5)
 DP_TRAIN = dict(arch="zamba2-2.7b", seq=64, batch=4, lr=1e-2)
+# phase 22: zamba2-2.7b at full width, its depth cut to FSDP_TRAIN's layer
+# groups (of the config's 9; a group is 6 Mamba-2 layers and a shared-block
+# call), float32, one AdamW step on a global batch of 2 x 512 tokens: one
+# process (a) against FSDP on two ranks sharing the card (b), one row a
+# rank; then ZeRO-1 on the same ranks for the bytes beside FSDP's
+FSDP_TRAIN = dict(arch="zamba2-2.7b", groups=3, seq=512, batch=2, lr=1e-4)
+FSDP_DIR = ROOT / "artifacts" / "chip_smoke" / "fsdp"
+# (b) against (a): the loss within 1e-6 and the grad norm within 1e-5 of
+# one process's, relative.  float32, so that this bar holds: the two ranks
+# compute the same float32 math row by row and sum it over the ranks in
+# another order (rounding at 1e-7 a term); in bfloat16 a product over one
+# row rounds otherwise than over two, which the step carries to the loss
+FSDP_TOL = dict(loss=1e-6, grad_norm=1e-5)
 LIN_META = {
     "rwkv6": ("src/repro_torch/csrc/rwkv6.cu", "src/repro/kernels/rwkv6.py:95"),
     "mamba2": ("src/repro_torch/csrc/mamba2.cu",
@@ -415,6 +440,8 @@ def main() -> int:
         return phase21_cell(sys.argv[2:])
     if sys.argv[1:2] == ["--phase21-placements"]:
         return phase21_placements()
+    if sys.argv[1:2] == ["--phase22-rank"]:
+        return phase22_rank()
     import torch
     require(torch.cuda.is_available(), "no CUDA device: this smoke runs on the "
             "card only")
@@ -603,6 +630,11 @@ def main() -> int:
           "meshes and held against phases 7 and 19")
     audit = run_analysis(torch, fwd_seconds, train, bf16_peak)
     mamba_row["audit_prefill_launches"] = audit["zamba2-2.7b"]["prefill"]
+
+    phase("22. FSDP training: zamba2-2.7b at full width, one process "
+          "against two ranks sharing the card, ZeRO-1's bytes beside, and "
+          "the checkpoint restored onto one rank")
+    run_fsdp(torch)
 
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
     require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
@@ -2770,10 +2802,14 @@ def run_distributed(torch, paged17: dict, fwd_seconds: dict) -> dict:
 AUDIT_POS = (1024, 517, 130, 2000)
 AUDIT_PROMPT = 1024
 AUDIT_ARCHS = ("zamba2-2.7b", "qwen3-8b")
-# (c): the dry-run cells on the production meshes
-DRYRUN_CELLS = (("qwen3-8b", "train_4k", ()),
-                ("zamba2-2.7b", "decode_32k", ("--both-meshes",)),
-                ("rwkv6-3b", "long_500k", ()))
+# (c): the dry-run cells on the production meshes (tag, arch, shape, flags);
+# qwen3-8b x train_4k in the FSDP layout (the default) and in ZeRO-1's
+DRYRUN_CELLS = (("qwen3-8b", "qwen3-8b", "train_4k", ()),
+                ("qwen3-8b_zero1", "qwen3-8b", "train_4k",
+                 ("--mode", "zero1")),
+                ("zamba2-2.7b", "zamba2-2.7b", "decode_32k",
+                 ("--both-meshes",)),
+                ("rwkv6-3b", "rwkv6-3b", "long_500k", ()))
 
 
 def _spawn(args: list[str], tag: str):
@@ -2822,10 +2858,10 @@ def run_analysis(torch, fwd_seconds: dict, train: dict,
                               "lint")
         jobs["placements"] = _spawn([smoke, "--phase21-placements"],
                                     "placements")
-        for arch, shape, extra in DRYRUN_CELLS:
-            jobs[arch] = _spawn(["-m", "repro_torch.launch.dryrun", "--arch",
-                                 arch, "--shape", shape, *extra],
-                                f"dryrun_{arch}")
+        for tag, arch, shape, extra in DRYRUN_CELLS:
+            jobs[tag] = _spawn(["-m", "repro_torch.launch.dryrun", "--arch",
+                                arch, "--shape", shape, *extra],
+                               f"dryrun_{tag}")
         for which in ("train", "forward"):
             jobs[which] = _spawn([smoke, "--phase21-cell", which],
                                  f"cell_{which}")
@@ -2855,7 +2891,7 @@ def run_analysis(torch, fwd_seconds: dict, train: dict,
 
     print("(c) the dry run on the production meshes (fake process groups, "
           "fake tensors), then the roofline")
-    check_dryrun([outs[a] for a, _, _ in DRYRUN_CELLS])
+    check_dryrun([outs[tag] for tag, *_ in DRYRUN_CELLS])
 
     print("(d) the dry run on one device against phases 19 and 7")
     check_dryrun_vs_card(json.loads(outs["train"].strip().splitlines()[-1]),
@@ -2913,6 +2949,12 @@ def _card_audit(torch, trace_audit) -> None:
         serving = [f for f in card if not f.site.endswith("/train_step")]
         require(not serving, f"{arch}: the card reported serving syncs "
                 f"that the audit's watch missed: {[str(f) for f in serving]}")
+        # ROADMAP C.3 closed: no sync in the train step, reported by the
+        # card or found by the watch
+        train = [f for f in got if f.site.endswith("/train_step")
+                 and f.rule == trace_audit.R_HOST_SYNC]
+        require(not train, f"{arch}: the train step syncs: "
+                f"{[str(f) for f in train]}")
 
 
 def run_audit(torch) -> dict:
@@ -3020,7 +3062,7 @@ def check_dryrun(outs: list[str]) -> None:
             print("  " + line)
             records.append(json.loads(
                 (dryrun.ART_DIR / line.split("-> ")[-1]).read_text()))
-    require(len(records) == 4, f"{len(records)} dry-run records, not 4")
+    require(len(records) == 5, f"{len(records)} dry-run records, not 5")
     for rec in records:
         row = roofline.build_row(rec)
         m, ops = rec["memory"], rec["ops"]
@@ -3039,6 +3081,14 @@ def check_dryrun(outs: list[str]) -> None:
               f"{row.compute_s:.4g} s, memory {row.memory_s:.4g} s, "
               f"collective {row.collective_s:.4g} s: {row.dominant}-bound, "
               f"roofline fraction {row.roofline_fraction:.4f}")
+    # FSDP's params and moments a rank against ZeRO-1's, same cell
+    arg = {rec["mode"]: rec["memory"]["argument_bytes"] for rec in records
+           if (rec["arch"], rec["shape"]) == ("qwen3-8b", "train_4k")}
+    print(f"  qwen3-8b x train_4k on 16x16, argument bytes a rank: fsdp "
+          f"{arg['fsdp']} ({arg['fsdp'] / 2**30:.3f} GiB), zero1 "
+          f"{arg['zero1']} ({arg['zero1'] / 2**30:.3f} GiB)")
+    require(arg["fsdp"] < arg["zero1"], f"FSDP's argument bytes {arg} are "
+            f"not below ZeRO-1's")
     md = ROOT / "build" / "phase21_roofline.md"
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
                           "--all-meshes", "--emit", str(md)], cwd=ROOT,
@@ -3050,7 +3100,7 @@ def check_dryrun(outs: list[str]) -> None:
         row = f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} |"
         require(any(ln.startswith(row) for ln in table),
                 f"the roofline table has no row {row}")
-    print(f"  python -m repro_torch.launch.roofline: {len(table) - 2} rows "
+    print(f"  python -m repro_torch.launch.roofline: {len(table) - 1} rows "
           f"(every record's among them) -> {md.relative_to(ROOT)}")
 
 
@@ -3144,6 +3194,238 @@ def phase21_placements() -> int:
     for f in bad:
         print(f"  {f}")
     return 1 if bad else 0
+
+
+# -- phase 22: FSDP training ------------------------------------------------------
+
+def _fsdp_cfg():
+    """zamba2-2.7b at full width, its depth cut to FSDP_TRAIN's groups, in
+    float32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(FSDP_TRAIN["arch"])
+    return dataclasses.replace(
+        cfg, n_layers=FSDP_TRAIN["groups"] * cfg.attn_every, dtype="float32")
+
+
+def _fsdp_data(cfg):
+    from repro_torch.data import SyntheticLM
+
+    return SyntheticLM(cfg.vocab, FSDP_TRAIN["seq"], FSDP_TRAIN["batch"],
+                       seed=0)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models.tree import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def _digest(tree) -> dict[str, str]:
+    """The sha256 of each leaf's bytes, by its key path."""
+    import hashlib
+
+    import torch
+
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+            return
+        raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+        out[path] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    walk(tree, "")
+    return out
+
+
+def phase22_rank() -> int:
+    """One rank of phase 22 (b): ``chip_smoke.py --phase22-rank``, two of
+    them started by ``run_fsdp`` on the one card (gloo).  Takes the step
+    on its row of the global batch, first with FSDP params (each rank's
+    shard by the specs; its whole params checkpointed for (c)), then
+    ZeRO-1's, each from the same seeded weights; prints its readings as
+    one JSON object on its last line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import local
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.steps import make_train_step, shard_params
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import abstract, family_module
+    from repro_torch.optim import AdamW
+
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda")
+    mesh = make_host_mesh(device="cuda")
+    cfg = _fsdp_cfg()
+    mod = family_module(cfg)
+    specs, segs = mod.specs(cfg), mod.compute_segments(cfg, 1)
+    batch = to_device(_fsdp_data(cfg).global_arrays(0, mesh), "cuda",
+                      torch.float32)
+    res = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "rows": int(batch["tokens"].shape[0])}
+    for layout in ("fsdp", "zero1"):
+        fsdp = layout == "fsdp"
+        params = shard_params(cfg, mod.init(cfg, seed=0, device="cuda"),
+                              mesh, fsdp=fsdp)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = AdamW(lr=FSDP_TRAIN["lr"]).shard(mesh, specs, segs, fsdp=fsdp)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        local.STATS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        out = {"seconds": time.perf_counter() - t0,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "peak": torch.cuda.max_memory_allocated(),
+               "params": _nbytes(params),
+               "moments": _nbytes(state.m) + _nbytes(state.v),
+               "collectives": {k: list(v) for k, v in local.STATS.items()}}
+        if fsdp:
+            # (c): the whole params, checkpointed (rank 0 writes)
+            shapes = abstract(mod.init, cfg, device="cpu")
+            whole = local.full_params(params, specs, mesh, shapes, segs,
+                                      fsdp=True)
+            CheckpointManager(FSDP_DIR / "ckpt").save(1, (whole,))
+            if dist.get_rank() == 0:
+                out["digest"] = _digest(whole)
+            del whole
+        res[layout] = out
+        del params, state, m, step, opt
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(json.dumps(res))
+    return 0
+
+
+def run_fsdp(torch) -> None:
+    """Phase 22: (a) one AdamW step in one process, (b) the same step on
+    two ranks sharing the card (``phase22_rank``: FSDP, then ZeRO-1), (c)
+    (b)'s FSDP checkpoint restored onto a one-rank mesh, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import local
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh, rank_json, run_ranks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import family_module
+    from repro_torch.models.tree import leaves, tree_map
+    from repro_torch.optim import AdamW
+
+    t_all = time.perf_counter()
+    if FSDP_DIR.exists():
+        shutil.rmtree(FSDP_DIR)
+    FSDP_DIR.mkdir(parents=True)
+    t = FSDP_TRAIN
+    cfg = _fsdp_cfg()
+    mod = family_module(cfg)
+    full_depth = get_config(t["arch"]).n_layers
+
+    # (a) one process, the whole batch
+    torch.cuda.empty_cache()
+    params = mod.init(cfg, seed=0, device="cuda")
+    n_params = sum(x.numel() for x in leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(lr=t["lr"])
+    state = opt.init(params)
+    batch = to_device(_fsdp_data(cfg).batch(0), "cuda", torch.float32)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    one = {"seconds": time.perf_counter() - t0, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]),
+           "peak": torch.cuda.max_memory_allocated(),
+           "params": _nbytes(params),
+           "moments": _nbytes(state.m) + _nbytes(state.v)}
+    print(f"(a) one process: {cfg.name} at full width (d {cfg.d_model}, "
+          f"80 SSD heads x 64, state 64; the shared block H 32, D 80), depth "
+          f"cut to {cfg.n_layers} of {full_depth} Mamba-2 layers "
+          f"({t['groups']} of {full_depth // cfg.attn_every} groups), "
+          f"float32, {n_params / 1e9:.3f} B parameters; one AdamW step "
+          f"(lr {t['lr']}) on {t['batch']} x {t['seq']} tokens: loss "
+          f"{one['loss']:.8f}, grad norm {one['grad_norm']:.8f}, "
+          f"{one['seconds'] * 1e3:.1f} ms; params {one['params'] / 1e9:.3f} "
+          f"GB, moments {one['moments'] / 1e9:.3f} GB, peak "
+          f"{one['peak'] / 1e9:.2f} GB")
+    require(math.isfinite(one["loss"]) and math.isfinite(one["grad_norm"]),
+            f"(a) non-finite loss or grad norm: {one}")
+    del params, state, m, step, batch
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the card: FSDP, then ZeRO-1
+    t0 = time.perf_counter()
+    procs = run_ranks([str(ROOT / "chip_smoke.py"), "--phase22-rank"], 2,
+                      FSDP_DIR / "ranks", timeout=600)
+    for r, p in enumerate(procs):
+        for line in p.stderr.strip().splitlines()[-5:]:
+            print(f"  [rank {r}] {line}")
+        require(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                f"{p.stderr[-3000:]}")
+    ranks = [rank_json(p) for p in procs]
+    print(f"(b) two ranks on the card, data=2 (backend "
+          f"{ranks[0]['backend']}), {ranks[0]['rows']} row of "
+          f"{t['seq']} tokens a rank: {time.perf_counter() - t0:.1f} s for "
+          f"both processes")
+    require(all(r_["backend"] == "gloo" for r_ in ranks),
+            "two ranks on one card did not run gloo")
+    for r, res in enumerate(ranks):
+        for layout in ("fsdp", "zero1"):
+            x = res[layout]
+            x["loss_rel"] = abs(x["loss"] - one["loss"]) / abs(one["loss"])
+            x["gnorm_rel"] = abs(x["grad_norm"] - one["grad_norm"]) \
+                / one["grad_norm"]
+            gloo = sum(v[1] for v in x["collectives"].values())
+            print(f"  rank {r} {layout:5s}: loss {x['loss']:.8f} (rel "
+                  f"{x['loss_rel']:.3g}), grad norm {x['grad_norm']:.8f} "
+                  f"(rel {x['gnorm_rel']:.3g}); step "
+                  f"{x['seconds'] * 1e3:.1f} ms, {gloo / x['seconds']:.0%} "
+                  f"in collectives ({_collectives(x['collectives'])}); "
+                  f"params {x['params'] / 1e9:.3f} GB, moments "
+                  f"{x['moments'] / 1e9:.3f} GB, peak "
+                  f"{x['peak'] / 1e9:.2f} GB")
+        f, z = res["fsdp"], res["zero1"]
+        require(f["loss_rel"] <= FSDP_TOL["loss"], f"rank {r}: the FSDP "
+                f"loss is {f['loss_rel']:.3g} from one process's")
+        require(f["gnorm_rel"] <= FSDP_TOL["grad_norm"], f"rank {r}: the "
+                f"FSDP grad norm is {f['gnorm_rel']:.3g} from one process's")
+        require(f["params"] < z["params"] and f["peak"] < z["peak"],
+                f"rank {r}: FSDP holds {f['params']} param bytes, peak "
+                f"{f['peak']}, ZeRO-1 {z['params']}, {z['peak']}")
+
+    # (c) the FSDP checkpoint onto a one-rank mesh
+    t0 = time.perf_counter()
+    mesh1 = make_host_mesh(device="cuda")
+    like = mod.init(cfg, seed=0, device="cuda")
+    (got,) = CheckpointManager(FSDP_DIR / "ckpt").restore(
+        1, like=(like,), mesh=mesh1, specs=(mod.specs(cfg),))
+    del like
+    digest = _digest(tree_map(local.full_tensor, got))
+    want = ranks[0]["fsdp"]["digest"]
+    require(set(digest) == set(want), "the restored leaves differ in name")
+    bad = [k for k in want if digest[k] != want[k]]
+    require(not bad, f"restored leaves differ from (b)'s whole params: {bad}")
+    print(f"(c) (b)'s FSDP checkpoint restored onto the one-rank mesh "
+          f"({dist.get_backend()}) as DTensors: all {len(want)} leaves "
+          f"bit for bit (b)'s whole params, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del got
+    dist.destroy_process_group()
+    shutil.rmtree(FSDP_DIR / "ckpt")
+    torch.cuda.empty_cache()
+    print(f"  phase 22 took {time.perf_counter() - t_all:.1f} s")
 
 
 if __name__ == "__main__":

@@ -11,13 +11,21 @@ the two:
   each chunk into chunks over ``b`` (DTensor's rule: ``ceil(n / k)`` rows
   a chunk, the last ones shorter or empty).
 * **Compute** runs on each rank's *compute view* (:func:`local_params`):
-  every leaf is whole over every axis but 'model' (a leaf sharded over
-  'data' is gathered before use), and over 'model' it is this rank's
-  shard -- with one exception, below.  The model code adds the
-  collectives over the ambient mesh's 'model' axis
+  over 'model' every leaf is this rank's shard (with one exception,
+  below); over 'data' it is whole (ZeRO-1 and serving: a leaf sharded
+  over 'data' is gathered once, up front) or, with ``fsdp=True``, this
+  rank's shard, as the reference trains (FSDP, below).  The model code
+  adds the collectives over the ambient mesh's 'model' axis
   (``context.use_mesh``): column-parallel products (:func:`column_in`),
   row-parallel ones (:func:`row_out`), the vocab-parallel embedding and
   head, experts over 'model'.
+* **FSDP** (:class:`Fsdp`, :func:`take`): the model reads each layer's
+  weights through :func:`take`, which inside an :func:`fsdp_scope`
+  all-gathers the layer's 'data' shards on the spec's dim where the layer
+  runs and reduce-scatters their gradient in the backward.  The scope's
+  saved-tensor hooks keep no gathered weight for the backward: each is
+  gathered again where the backward reads it, so one layer's weights are
+  whole at a time.  Outside a scope :func:`take` is plain indexing.
 
 **The rule for concatenated dims.**  A contiguous shard of a dim that
 concatenates segments is not a head-aligned shard: zamba2's ``in_proj``
@@ -50,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
+import weakref
 from typing import Any, NamedTuple
 
 import torch
@@ -456,10 +465,10 @@ def full_tensor(leaf) -> torch.Tensor:
 # The compute view
 # ---------------------------------------------------------------------------
 
-def _model_only(spec: P) -> P:
-    """``spec`` with every axis but 'model' dropped."""
+def _only(spec: P, axis: str) -> P:
+    """``spec`` with every axis but ``axis`` dropped."""
     from .sharding import _filter_axes
-    return P(*(_filter_axes(e, ("model",)) for e in spec))
+    return P(*(_filter_axes(e, (axis,)) for e in spec))
 
 
 def _segmented(full: torch.Tensor, dim: int, segs, ax: Axis,
@@ -484,12 +493,37 @@ def _segmented(full: torch.Tensor, dim: int, segs, ax: Axis,
     return torch.cat(parts, dim=dim).contiguous()
 
 
-def local_params(tree: Params, specs, mesh, segments: dict | None = None
-                 ) -> Params:
+def fsdp_dim(spec: P, mesh) -> int | None:
+    """The dim ``spec`` shards over 'data' on ``mesh`` (None: none, or
+    the mesh has no 'data' axis of more than one rank).  The dim may name
+    no other axis of more than one rank: a rank's 'model' shard of it
+    would not be a slice of the dim gathered over 'data'."""
+    if mesh_axis(mesh, "data") is None:
+        return None
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry)
+        if "data" in axes:
+            others = [a for a in axes if a != "data"
+                      and mesh_axis(mesh, a) is not None]
+            if others:
+                raise ValueError(f"{spec}: FSDP over 'data' on a dim also "
+                                 f"split over {others}")
+            return d
+    return None
+
+
+def _key(path) -> tuple:
+    return tuple(k for k in path if isinstance(k, str))
+
+
+def local_params(tree: Params, specs, mesh, segments: dict | None = None,
+                 fsdp: bool = False) -> Params:
     """The compute view of ``tree`` (whole tensors, or DTensors laid out by
-    ``specs``) on this rank: whole over every axis but 'model', this
-    rank's shard over 'model', concatenated dims by ``segments`` (the
-    model's ``compute_segments``)."""
+    ``specs``) on this rank: this rank's shard over 'model', concatenated
+    dims by ``segments`` (the model's ``compute_segments``); whole over
+    every other axis, or with ``fsdp`` this rank's shard over 'data' too
+    (:func:`fsdp_dim`)."""
     from torch.distributed.tensor import DTensor
 
     ax = mesh_axis(mesh, "model")
@@ -498,18 +532,20 @@ def local_params(tree: Params, specs, mesh, segments: dict | None = None
     def one(t, spec, path):
         if isinstance(t, DTensor):
             t = full_tensor(t)
-        seg = segments.get(tuple(k for k in path if isinstance(k, str)))
+        if fsdp and fsdp_dim(spec, mesh) is not None:
+            t = local_shard(t, _only(spec, "data"), mesh)
+        seg = segments.get(_key(path))
         if seg is not None and ax is not None:
             return _segmented(t, seg[0], seg[1], ax)
-        return local_shard(t, _model_only(spec), mesh)
+        return local_shard(t, _only(spec, "model"), mesh)
     return zip_specs(one, tree, specs)
 
 
 def full_params(tree: Params, specs, mesh, shapes,
-                segments: dict | None = None) -> Params:
+                segments: dict | None = None, fsdp: bool = False) -> Params:
     """The whole tensors of a compute-view ``tree`` (the inverse of
-    :func:`local_params`), on every rank; ``shapes`` is a tree of the
-    whole shapes (tensors or meta tensors)."""
+    :func:`local_params`, ``fsdp`` as there), on every rank; ``shapes``
+    is a tree of the whole shapes (tensors or meta tensors)."""
     ax = mesh_axis(mesh, "model")
     segments = segments or {}
     flat_shapes = {}
@@ -520,28 +556,221 @@ def full_params(tree: Params, specs, mesh, shapes,
     zip_specs(note, shapes, specs)
 
     def one(t, spec, path):
-        seg = segments.get(tuple(k for k in path if isinstance(k, str)))
+        shape = flat_shapes[path]
+        d = fsdp_dim(spec, mesh) if fsdp else None
+        if d is not None:       # over 'data' first: the dim is not 'model''s
+            whole_d = list(t.shape)
+            whole_d[d] = shape[d]
+            t = gather_full(t, whole_d, _only(spec, "data"), mesh)
+        seg = segments.get(_key(path))
         if seg is not None and ax is not None:
             return _segmented(t, seg[0], seg[1], ax, inverse=True)
-        return gather_full(t, flat_shapes[path], _model_only(spec), mesh)
+        return gather_full(t, shape, _only(spec, "model"), mesh)
     return zip_specs(one, tree, specs)
 
 
 def local_zeros(like: Params, specs, mesh, device,
-                segments: dict | None = None) -> Params:
+                segments: dict | None = None, fsdp: bool = False) -> Params:
     """Zeros of the compute-view shapes of ``like`` (meta tensors will
-    do) on ``device``: a rank's cache, allocated without its whole."""
+    do) on ``device``, ``fsdp`` as in :func:`local_params`: a rank's
+    cache or state, allocated without its whole."""
     ax = mesh_axis(mesh, "model")
     segments = segments or {}
 
     def one(t, spec, path):
-        seg = segments.get(tuple(k for k in path if isinstance(k, str)))
+        shape = list(t.shape)
+        d = fsdp_dim(spec, mesh) if fsdp else None
+        if d is not None:
+            data = mesh_axis(mesh, "data")
+            shape[d] = chunk(shape[d], data.size, data.rank)[1]
+        seg = segments.get(_key(path))
         if seg is not None and ax is not None:
-            shape = list(t.shape)
             shape[seg[0]] = sum(n // ax.size if split else n
                                 for n, split in seg[1])
         else:
-            sl = shard_slices(t.shape, _model_only(spec), mesh)
-            shape = [len(range(*s.indices(n))) for s, n in zip(sl, t.shape)]
+            sl = shard_slices(shape, _only(spec, "model"), mesh)
+            shape = [len(range(*s.indices(n))) for s, n in zip(sl, shape)]
         return torch.zeros(shape, dtype=t.dtype, device=device)
     return zip_specs(one, like, specs)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a layer's weights gathered over 'data' where it runs
+# ---------------------------------------------------------------------------
+
+class _Part(NamedTuple):
+    """How one leaf is cut over 'data': the dim of the (stacked) leaf,
+    each rank's length on it, and this rank's start."""
+    dim: int
+    sizes: list
+    start: int
+
+    def gather(self, x: torch.Tensor, ax: Axis, lead: int) -> torch.Tensor:
+        """The ranks' shards ``x`` of a leaf indexed on ``lead`` leading
+        dims, joined on the part's dim."""
+        return all_gather(x, ax.group, self.dim - lead, self.sizes)
+
+    def scatter(self, g: torch.Tensor, ax: Axis, lead: int) -> torch.Tensor:
+        """The sum over 'data' of the gathered gradient ``g``, this rank's
+        slice of it (the reduce-scatter; gloo has none)."""
+        return all_reduce(g, ax.group).narrow(
+            self.dim - lead, self.start,
+            self.sizes[ax.rank]).contiguous()
+
+
+class Fsdp:
+    """The FSDP layout of a param tree on ``mesh``: for each leaf (by its
+    key path) the :class:`_Part` cut over 'data' by ``specs``, or None
+    where the leaf is replicated over 'data'.  ``shapes`` is a tree of
+    the whole leaves (meta or fake tensors will do)."""
+
+    def __init__(self, specs, mesh, shapes):
+        self.specs = specs
+        self.data = mesh_axis(mesh, "data")
+        self.parts: dict[tuple, _Part | None] = {}
+
+        def note(s, spec, path):
+            d = fsdp_dim(spec, mesh)
+            part = None
+            if d is not None:
+                n, k = s.shape[d], self.data.size
+                part = _Part(d, [chunk(n, k, i)[1] for i in range(k)],
+                             chunk(n, k, self.data.rank)[0])
+            self.parts[_key(path)] = part
+            return s
+        zip_specs(note, shapes, specs)
+
+    def map(self, fn, tree) -> Params:
+        """``fn(leaf, part)`` over a params-shaped tree."""
+        return zip_specs(lambda t, _s, path: fn(t, self.parts[_key(path)]),
+                         tree, self.specs)
+
+
+class _Acc:
+    """The gradient of a stacked leaf, written a layer at a time by its
+    :class:`_Take` s and handed on by the last of them to run."""
+
+    def __init__(self, stack: torch.Tensor):
+        self.shape, self.buf, self.pending = stack.shape, None, 0
+
+
+class _Take(torch.autograd.Function):
+    """Layer ``idx`` of the stacked shard ``stack`` (the shard itself
+    where ``idx`` is ()), gathered over 'data' where ``part`` says:
+    forward an all-gather, backward a reduce-scatter (each rank's
+    gradient is its own rows' part of the sum).  A stacked leaf's layers
+    write their gradients into one buffer (``acc``) that the last to run
+    hands on: no stack-sized zeros a layer, as indexing's backward has."""
+
+    @staticmethod
+    def forward(ctx, stack, idx, part, ax, acc):
+        ctx.idx, ctx.part, ctx.ax, ctx.acc = idx, part, ax, acc
+        if acc is not None:
+            acc.pending += 1
+        x = stack[idx] if idx else stack
+        return x.clone() if part is None else part.gather(x, ax, len(idx))
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.part is not None:
+            g = ctx.part.scatter(g, ctx.ax, len(ctx.idx))
+        acc = ctx.acc
+        if acc is None:
+            return g, None, None, None, None
+        if acc.buf is None:
+            acc.buf = g.new_zeros(acc.shape)
+        acc.buf[ctx.idx] = g
+        acc.pending -= 1
+        return (acc.buf if acc.pending == 0 else None), None, None, None, \
+            None
+
+
+class _Regather(NamedTuple):
+    """A saved gathered weight, kept as the recipe to gather it again."""
+    stack: torch.Tensor
+    idx: tuple
+    part: _Part
+    view: tuple            # size, stride, storage offset
+
+
+class _Scope:
+    def __init__(self, layout: Fsdp):
+        self.layout = layout
+        self.acc: dict[int, _Acc] = {}
+        # storage of each gathered weight alive -> how to gather it again
+        self.gathered: dict[int, tuple] = {}
+
+    def take(self, sub, path: tuple, idx: tuple):
+        ax = self.layout.data
+
+        def one(t, sub_path):
+            if isinstance(t, dict):
+                return {k: one(v, sub_path + (k,)) for k, v in t.items()}
+            part = self.layout.parts[path + sub_path]
+            if part is None and not idx:
+                return t
+            acc = None
+            if idx:
+                acc = self.acc.get(id(t))
+                if acc is None:
+                    acc = self.acc[id(t)] = _Acc(t)
+            y = _Take.apply(t, idx, part, ax, acc)
+            if part is not None:
+                key = y.untyped_storage()._cdata
+                self.gathered[key] = (t, idx, part)
+                weakref.finalize(y, self.gathered.pop, key, None)
+            return y
+        return one(sub, ())
+
+    def pack(self, t: torch.Tensor):
+        recipe = self.gathered.get(t.untyped_storage()._cdata)
+        if recipe is None:
+            return t
+        return _Regather(*recipe, (t.size(), t.stride(), t.storage_offset()))
+
+    def unpack(self, saved):
+        if not isinstance(saved, _Regather):
+            return saved
+        x = saved.stack[saved.idx] if saved.idx else saved.stack
+        whole = saved.part.gather(x.detach(), self.layout.data,
+                                  len(saved.idx))
+        return whole.as_strided(*saved.view)
+
+
+_SCOPE: dict[str, _Scope | None] = {"now": None}
+
+
+@contextlib.contextmanager
+def fsdp_scope(layout: Fsdp | None):
+    """Run a forward and its backward with ``layout``'s weights gathered
+    by :func:`take` (nothing changes with None, or on a mesh whose 'data'
+    axis has one rank)."""
+    if layout is None or layout.data is None:
+        yield
+        return
+    prev, scope = _SCOPE["now"], _Scope(layout)
+    _SCOPE["now"] = scope
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(scope.pack,
+                                                      scope.unpack):
+            yield
+    finally:
+        _SCOPE["now"] = prev
+
+
+def take(params: Params, path: tuple, idx: tuple = ()) -> Params:
+    """The subtree of ``params`` at ``path``, at layer ``idx`` of its
+    stacked leading dims: views of the stack; inside an
+    :func:`fsdp_scope`, each leaf gathered over 'data' (:class:`_Take`)."""
+    sub = params
+    for k in path:
+        sub = sub[k]
+    scope = _SCOPE["now"]
+    if scope is not None:
+        return scope.take(sub, tuple(path), tuple(idx))
+
+    def index(t):
+        if isinstance(t, dict):
+            return {k: index(v) for k, v in t.items()}
+        return t[tuple(idx)] if idx else t
+    return index(sub)

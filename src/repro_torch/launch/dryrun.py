@@ -22,12 +22,19 @@ bytes they are.  The group is started for a cell and destroyed after it
 (``fake_world``), so nothing outlives the call; nothing happens at import.
 
 Modes (train cells; the others run the same way in every mode):
-  zero1  -- the port's trainer: params under ``zero1_specs`` (TP only),
-            AdamW moments sharded over 'data' too (the default);
-  puredp -- no TP: the mesh's ranks as one 'data' axis, params whole,
-            moments sharded over every rank, the batch over every rank;
-  fsdp   -- the reference's default (weights sharded over 'data' and
-            gathered by GSPMD) has no compute path in the port: refused.
+  fsdp   -- the reference's default and the port's trainer: params and
+            AdamW moments laid out by the family's specs (sharded over
+            'data' and 'model'); each layer's weights all-gathered over
+            'data' where it runs, their grads reduce-scattered
+            (``distributed.local.Fsdp``);
+  zero1  -- params under ``zero1_specs`` (TP only), AdamW moments sharded
+            over 'data' too;
+  puredp -- no TP: the mesh's ranks as one 'data' axis, params and moments
+            FSDP over every rank (the reference's ``_puredp_specs``), the
+            batch over every rank.
+The records count each collective (``local.STATS``): under FSDP a layer's
+all-gathers (forward, and again where the backward reads a weight) and
+its grads' reduce-scatters (all-reduces: gloo has no reduce-scatter).
 
 ``memory.temp_bytes`` is the peak of live bytes held by the tensors the
 step's ops returned (a dispatch mode counts fake storages as they are
@@ -66,7 +73,7 @@ from repro_torch.models.tree import arrays
 
 ART_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "torch_dryrun"
 
-MODES = ("zero1", "puredp", "fsdp")
+MODES = ("fsdp", "zero1", "puredp")
 
 
 @contextlib.contextmanager
@@ -86,7 +93,7 @@ def fake_world(world: int):
         dist.destroy_process_group()
 
 
-def make_mesh(multi_pod: bool, mode: str = "zero1"):
+def make_mesh(multi_pod: bool, mode: str = "fsdp"):
     """(the production mesh on the fake group, the mesh the cell runs on):
     the same, or for ``puredp`` its ranks as one ('data', 'model') mesh
     with a model axis of 1."""
@@ -154,12 +161,13 @@ def inputs(cfg: ModelConfig, shape: ShapeCell, rows: int) -> dict:
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *,
-               mode: str = "zero1"):
+               mode: str = "fsdp"):
     """(step, args) on this rank of ``mesh`` (None: one device): fake
-    params (the compute view), optimizer state and cache, and this rank's
-    rows of the inputs.  Serving steps run the plain versions
-    (``impl="torch"``; the reference's dry run lowers ``impl="xla"``),
-    the train step the trainer's own (``kernels.plain``)."""
+    params (the compute view: a train cell's in ``mode``'s layout),
+    optimizer state and cache, and this rank's rows of the inputs.
+    Serving steps run the plain versions (``impl="torch"``; the
+    reference's dry run lowers ``impl="xla"``), the train step the
+    trainer's own (``kernels.plain``)."""
     from repro_torch.launch.steps import (make_cache, make_decode_step,
                                           make_prefill_step, make_train_step,
                                           shard_params)
@@ -168,18 +176,21 @@ def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *,
     mod = family_module(cfg)
     tp = 1 if mesh is None else tp_size(mesh)
     params = abstract(mod.init, cfg, tp=tp, device="cpu")
+    train = shape.kind == "train"
+    fsdp = train and mode != "zero1"
+    pspecs = mod.specs(cfg)
+    if train and mode == "puredp":
+        pspecs = _puredp_specs(pspecs)
     if mesh is not None:
-        params = abstract(shard_params, cfg, params, mesh)
+        params = abstract(shard_params, cfg, params, mesh, specs=pspecs,
+                          fsdp=fsdp)
     rows = shape.global_batch // batch_ways(shape.global_batch, mesh)
     batch = inputs(cfg, shape, rows)
 
-    if shape.kind == "train":
+    if train:
         opt = AdamW()
         if mesh is not None:
-            pspecs = mod.specs(cfg)
-            if mode == "puredp":
-                pspecs = _puredp_specs(pspecs)
-            opt.shard(mesh, pspecs, mod.compute_segments(cfg, tp))
+            opt.shard(mesh, pspecs, mod.compute_segments(cfg, tp), fsdp=fsdp)
         opt_state = abstract(opt.init, params)
         return make_train_step(cfg, opt, mesh=mesh), (params, opt_state,
                                                       batch)
@@ -245,7 +256,7 @@ class LiveBytes(TorchDispatchMode):
 
 
 def run_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *,
-             mode: str = "zero1") -> dict:
+             mode: str = "fsdp") -> dict:
     """Build and run one cell on ``mesh`` (None: one device, no group);
     returns the record's measured part."""
     t0 = time.perf_counter()
@@ -291,15 +302,13 @@ def _gpus_per_node() -> int:
 
 def lower_cell(arch: str, shape: str | ShapeCell, *, multi_pod: bool = False,
                single: bool = False, layers: int | None = None,
-               variant: str = "", mode: str = "zero1") -> dict:
+               variant: str = "", mode: str = "fsdp") -> dict:
     """One cell's record: ``shape`` a ``SHAPES`` name or a
     :class:`ShapeCell`; on the production mesh (a fake group of 256, or
     512 with ``multi_pod``, for the call), or with ``single`` on one
     device with no mesh."""
-    if mode not in MODES[:2]:
-        raise ValueError(f"--mode {mode}: the port has no compute path "
-                         f"that gathers FSDP-sharded weights (ROADMAP A); "
-                         f"use zero1 or puredp")
+    if mode not in MODES:
+        raise ValueError(f"--mode {mode}: one of {MODES}")
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -327,6 +336,8 @@ def lower_cell(arch: str, shape: str | ShapeCell, *, multi_pod: bool = False,
 def save_record(record: dict) -> Path:
     ART_DIR.mkdir(parents=True, exist_ok=True)
     tag = (f"{record['arch']}_{record['shape']}_{record['mesh']}"
+           + ("" if record["kind"] != "train" or record["mode"] == "fsdp"
+              else f"_{record['mode']}")
            + ("" if record["variant"] == "baseline"
               else f"_{record['variant']}"))
     path = ART_DIR / f"{tag}.json"
@@ -347,9 +358,8 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=None,
                     help="override n_layers (roofline extrapolation probes)")
     ap.add_argument("--variant", default="", help="tag for perf experiments")
-    ap.add_argument("--mode", default="zero1", choices=MODES,
-                    help="train-cell weight sharding strategy (fsdp has no "
-                         "compute path in the port and is refused)")
+    ap.add_argument("--mode", default="fsdp", choices=MODES,
+                    help="train-cell weight sharding strategy")
     args = ap.parse_args(argv)
 
     if args.all:

@@ -13,18 +13,23 @@ Every builder takes ``mesh=``: the step then runs under that ambient mesh
 (``distributed.context.use_mesh``) on the compute view of the params
 (:func:`shard_params`), each rank on its own shard, and ``tp`` is the
 mesh's 'model' axis.  The train step under a mesh takes this rank's rows
-of the global batch and averages loss and grads over 'data'.
+of the global batch and averages loss and grads over every batch axis
+('pod' and 'data'), as the reference's step averages the global batch.
+It trains in the optimizer's layout: ZeRO-1 (params whole over 'data') or
+FSDP (params this rank's 'data' shard, each layer gathered where it runs,
+``distributed.local.Fsdp``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.distributed import context, local
-from repro_torch.distributed.sharding import tp_size
+from repro_torch.distributed.sharding import BATCH_AXES, tp_size
 from repro_torch.kernels import plain
-from repro_torch.models import family_module
+from repro_torch.models import abstract, family_module
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.tree import leaves, tree_map
 from repro_torch.optim import AdamW, ef_compress
@@ -48,13 +53,16 @@ def resolve_tp(mesh, tp: int) -> int:
     return mtp
 
 
-def shard_params(cfg: ModelConfig, params: Params, mesh) -> Params:
+def shard_params(cfg: ModelConfig, params: Params, mesh, *,
+                 specs=None, fsdp: bool = False) -> Params:
     """The compute view on this rank (``distributed.local``) of whole
     params (padded for the mesh's 'model' axis) or of DTensors laid out by
-    the family's specs."""
+    ``specs`` (default the family's): with ``fsdp``, each leaf this rank's
+    shard over 'data' too."""
     mod = family_module(cfg)
-    return local.local_params(params, mod.specs(cfg), mesh,
-                              mod.compute_segments(cfg, tp_size(mesh)))
+    return local.local_params(params, specs or mod.specs(cfg), mesh,
+                              mod.compute_segments(cfg, tp_size(mesh)),
+                              fsdp=fsdp)
 
 
 def _on_mesh(fn, mesh):
@@ -95,15 +103,19 @@ def make_loss_fn(cfg: ModelConfig, *, tp: int = 1, impl=plain):
     return loss_fn
 
 
-def value_and_grad(loss_fn, params: Params, batch: dict
+def value_and_grad(loss_fn, params: Params, batch: dict,
+                   fsdp: local.Fsdp | None = None
                    ) -> tuple[torch.Tensor, Params]:
     """(loss, grads) of ``loss_fn(params, batch)``, the grads a tree like
     ``params``, from ``torch.autograd.grad`` over detached aliases of the
     param leaves: no ``.grad`` and no ``requires_grad`` is left on the
     params.  A leaf the loss does not read (hubert's embedding table) gets
-    zeros, as in ``jax.value_and_grad``."""
+    zeros, as in ``jax.value_and_grad``.  With ``fsdp`` the params are
+    this rank's shards in that layout, gathered layer by layer
+    (``local.fsdp_scope``); the grad of a leaf cut over 'data' is then its
+    slice of the sum over the 'data' ranks."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    with torch.enable_grad():
+    with torch.enable_grad(), local.fsdp_scope(fsdp):
         loss = loss_fn(live, batch)
         grads = torch.autograd.grad(loss, list(leaves(live)),
                                     allow_unused=True, materialize_grads=True)
@@ -120,21 +132,42 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, tp: int = 1,
     feedback before the update and the residual is carried in
     ``ef_state``, in place.
 
-    Under ``mesh`` the params are this rank's compute view, ``batch`` this
-    rank's rows of the global batch (``SyntheticLM.global_arrays``); the
-    loss and the grads are averaged over 'data' (equal rows a rank, so the
-    global batch's mean), and the optimizer, sharded by
-    ``optimizer.shard``, updates its ZeRO-1 slice."""
+    Under ``mesh`` the params are this rank's compute view in the layout
+    ``optimizer.shard`` set (ZeRO-1, or FSDP with ``fsdp=True``),
+    ``batch`` this rank's rows of the global batch
+    (``SyntheticLM.global_arrays``); the loss and the grads are averaged
+    over the batch axes 'pod' and 'data' (equal rows a rank, so the
+    global batch's mean).  Under FSDP the grad of a leaf cut over 'data'
+    arrives summed over 'data' from the backward's reduce-scatter, so only
+    'pod' is left to sum; the optimizer then updates each rank's shard,
+    with no gather."""
     tp = resolve_tp(mesh, tp)
     loss_fn = make_loss_fn(cfg, tp=tp, impl=impl)
-    data = local.mesh_axis(mesh, "data")
+    axes = {a: local.mesh_axis(mesh, a) for a in BATCH_AXES}
+    axes = {a: ax for a, ax in axes.items() if ax is not None}
+    ways = math.prod(ax.size for ax in axes.values())
+    layout = None
+    if mesh is not None and optimizer.fsdp:
+        shapes = abstract(family_module(cfg).init, cfg, tp=tp, device="cpu")
+        layout = local.Fsdp(optimizer.specs, mesh, shapes)
+
+    def mean(x, summed=()):
+        """``x`` summed over the batch axes but those in ``summed``,
+        divided by the global batch's ranks."""
+        for a, ax in axes.items():
+            if a not in summed:
+                x = local.all_reduce(x, ax.group)
+        return x / ways
 
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(loss_fn, params, batch)
-        if data is not None:
-            loss = local.all_reduce(loss, data.group) / data.size
-            grads = tree_map(
-                lambda g: local.all_reduce(g, data.group) / data.size, grads)
+        loss, grads = value_and_grad(loss_fn, params, batch, layout)
+        if axes:
+            loss = mean(loss)
+            if layout is None:
+                grads = tree_map(mean, grads)
+            else:
+                grads = layout.map(lambda g, part: mean(
+                    g, ("data",) if part else ()), grads)
         if ef_state is not None:
             grads, new_ef = ef_compress(grads, ef_state)
             for e, n in zip(leaves(ef_state), leaves(new_ef)):

@@ -15,13 +15,16 @@ Port of ``repro/launch/train.py``: real AdamW steps on the card (or, with
 Each step runs eagerly on the plain versions under autograd (the
 reference's ``impl="xla"``; the kernels have no backward).
 
-Launched as a process group (``torchrun``), it trains data-parallel on
-``make_host_mesh()``: each rank takes its rows of the global batch, the
-grads are averaged over 'data', and the optimizer is ZeRO-1 (params by
-``zero1_specs``, moments by the full specs).  ``--production-mesh`` trains
-on the 16 x 16 production mesh and refuses any world but 256 ranks.
-Checkpoints hold whole arrays whatever the mesh, and restore onto the
-current one.  Rank 0 prints and writes.
+Launched as a process group (``torchrun``), it trains on
+``make_host_mesh()`` in the reference trainer's layout, FSDP: params and
+AdamW moments laid out by the family's specs (``mod.specs(cfg)``), so each
+rank holds its shard over 'data' (and 'model') of every leaf; each layer's
+weights are gathered over 'data' where the layer runs and their grads
+reduce-scattered (``distributed.local.Fsdp``); each rank takes its rows of
+the global batch.  ``--production-mesh`` trains on the 16 x 16 production
+mesh and refuses any world but 256 ranks.  Checkpoints hold whole arrays
+whatever the mesh, and restore onto the current one.  Rank 0 prints and
+writes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
       --smoke --device cpu --steps 30 --inject-failure-at 12
@@ -44,7 +47,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.distributed import context, local
 from repro_torch.distributed.context import DEFAULT_TRAIN_SPEC
-from repro_torch.distributed.sharding import tp_size, zero1_specs
+from repro_torch.distributed.sharding import tp_size
 from repro_torch.ft import CheckpointManager, Watchdog
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import family_module, reduced
@@ -68,38 +71,35 @@ def _mesh(args, device):
 
 
 class _Sharded:
-    """The trainer's state on a mesh: the params' and the optimizer's
-    compute views on this rank, and their whole form for checkpoints."""
+    """The trainer's state on a mesh, FSDP: the params', the moments' and
+    the residual's shards on this rank by the family's specs, and their
+    whole form for checkpoints."""
 
     def __init__(self, cfg, mod, opt: AdamW, mesh):
-        self.opt, self.mesh = opt, mesh
+        self.mesh = mesh
         self.specs = mod.specs(cfg)
         self.segments = mod.compute_segments(cfg, tp_size(mesh))
-        opt.shard(mesh, self.specs, self.segments)
+        opt.shard(mesh, self.specs, self.segments, fsdp=True)
 
     def layout_specs(self, with_ef: bool):
-        """Checkpoint specs: params ZeRO-1, moments (and the residual)
-        fully sharded."""
-        specs = (zero1_specs(self.specs), AdamW.init_specs(self.specs))
+        """Checkpoint specs: every leaf by the family's specs."""
+        specs = (self.specs, AdamW.init_specs(self.specs))
         return specs + (self.specs,) if with_ef else specs
 
     def local(self, tree):
         return local.local_params(tree, self.specs, self.mesh,
-                                  self.segments)
+                                  self.segments, fsdp=True)
 
     def local_state(self, state):
-        """Compute-view moments, then this rank's ZeRO-1 slice of each."""
-        m, v = (self.opt.scatter_moments(self.local(t))
-                for t in (state.m, state.v))
+        m, v = (self.local(t) for t in (state.m, state.v))
         return type(state)(local.full_tensor(state.step).clone(), m, v)
 
     def whole(self, tree, shapes):
         return local.full_params(tree, self.specs, self.mesh, shapes,
-                                 self.segments)
+                                 self.segments, fsdp=True)
 
     def whole_state(self, state, shapes):
-        m, v = (self.whole(self.opt.gather_moments(t), shapes)
-                for t in (state.m, state.v))
+        m, v = (self.whole(t, shapes) for t in (state.m, state.v))
         return type(state)(state.step, m, v)
 
 

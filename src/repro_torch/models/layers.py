@@ -119,28 +119,35 @@ def segment_sum_rows(grad: torch.Tensor, ids: torch.Tensor,
     position ``j``, ``j % 2s == 0``, adds the one at ``j + s``).  No atomic
     adds (``index_add_``, ``index_put_(accumulate=True)`` and
     ``scatter_add_`` use them on the card), so the same inputs give the same
-    bits on every call, on the CPU and on the card.  Sums in float32."""
+    bits on every call, on the CPU and on the card.  Sums in float32.
+
+    Every tensor has a shape fixed by ``ids``'s: the levels run up to the
+    longest possible run (``ceil(log2(len(ids)))``, a level past the
+    longest actual run adds nothing), so the host never waits for the
+    card."""
     d = grad.shape[-1]
     ids = ids.reshape(-1)
+    n = ids.numel()
     vals = grad.reshape(-1, d).float()
     ids_sorted, order = torch.sort(ids, stable=True)
     vals = vals[order]
-    uniq, counts = torch.unique_consecutive(ids_sorted, return_counts=True)
-    starts = torch.cumsum(counts, 0) - counts
-    run = torch.repeat_interleave(torch.arange(len(uniq), device=ids.device),
-                                  counts)
-    pos = torch.arange(len(ids), device=ids.device) - starts[run]
-    cnt = counts[run]
-    longest = int(counts.max()) if len(counts) else 0
+    at = torch.arange(n, device=ids.device)
+    first = torch.ones(n, dtype=torch.bool, device=ids.device)
+    first[1:] = ids_sorted[1:] != ids_sorted[:-1]
+    # each element's position in its run: its index less its run's start
+    pos = at - torch.cummax(torch.where(first, at, 0), 0).values
     stride = 1
-    while stride < longest:
-        recv = torch.nonzero(((pos % (2 * stride)) == 0)
-                             & (pos + stride < cnt))[:, 0]
-        vals[recv] = vals[recv] + vals[recv + stride]
+    while stride < n:
+        nxt = (at + stride).clamp(max=n - 1)
+        recv = ((pos % (2 * stride)) == 0) & (at + stride < n) \
+            & (ids_sorted[nxt] == ids_sorted)
+        vals = torch.where(recv[:, None], vals + vals[nxt], vals)
         stride *= 2
-    out = vals.new_zeros((rows, d))
-    out[uniq] = vals[starts]          # unique rows: a plain write
-    return out
+    # each run's first element holds its sum: write it to its row, every
+    # other element to a scratch row past the table
+    out = vals.new_zeros((rows + 1, d))
+    out[torch.where(first, ids_sorted, rows)] = vals
+    return out[:rows]
 
 
 class _Gather(torch.autograd.Function):

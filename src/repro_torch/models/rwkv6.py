@@ -197,11 +197,12 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
             tp: int = 1, impl="cuda") -> torch.Tensor:
     """Full-sequence forward -> logits; every layer's recurrence goes
     through ``ops.rwkv6`` (the kernel when ``impl='cuda'``)."""
-    x = L.embed(params["embed"], inputs["tokens"])
+    x = L.embed(local.take(params, ("embed",)), inputs["tokens"])
     for i in range(cfg.n_layers):
-        x, _ = _block(layer(params["layers"], i), cfg, x, tp, impl)
+        x, _ = _block(local.take(params, ("layers",), (i,)), cfg, x, tp,
+                      impl)
     x = L.rms_norm(x, params["final_norm"])
-    return L.unembed(params["head"], x, cfg.vocab)
+    return L.unembed(local.take(params, ("head",)), x, cfg.vocab)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
@@ -257,15 +258,15 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     state, not a position, carries the history; ``row_map`` is likewise
     accepted and ignored (no leaf is paged).  The cache is written in place
     and returned."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(local.take(params, ("embed",)), tokens)
     for i in range(cfg.n_layers):
         st = layer(cache, i)
-        x, new = _block(layer(params["layers"], i), cfg, x, tp, impl,
-                        state=st)
+        x, new = _block(local.take(params, ("layers",), (i,)), cfg, x, tp,
+                        impl, state=st)
         for name, t in new.items():
             st[name].copy_(t)
     x = L.rms_norm(x, params["final_norm"])
-    return L.unembed(params["head"], x, cfg.vocab), cache
+    return L.unembed(local.take(params, ("head",)), x, cfg.vocab), cache
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,

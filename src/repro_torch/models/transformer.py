@@ -12,7 +12,9 @@ The paged cache keeps full-length KV in one physical pool per layer stack
 
 ``specs``, ``cache_specs`` and ``paged_cache_specs`` are the reference's
 spec trees; under a mesh the model runs on each rank's compute view of its
-params (``distributed.local``), and a full-sequence forward of token
+params (``distributed.local``; each layer's weights, the embedding and
+the head read through ``local.take``, which gathers them over 'data'
+under FSDP), and a full-sequence forward of token
 inputs lays its residual stream out as the activation context says
 (sequence-parallel over 'model' under ``DEFAULT_TRAIN_SPEC``).
 """
@@ -164,7 +166,7 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
         order = [("all", i, cfg.local_window) for i in range(cfg.n_layers)]
     for name, i, window in order:
         cache = None if caches is None else layer(caches[name], i)
-        x, _ = _block(layer(params["layers"][name], i), cfg, x,
+        x, _ = _block(local.take(params, ("layers", name), (i,)), cfg, x,
                       window=window, cache=cache, **kw)
     return x, caches
 
@@ -172,11 +174,16 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, tp, impl,
 def _embed_inputs(params, cfg: ModelConfig, inputs: Params) -> torch.Tensor:
     if cfg.embed_inputs:                       # hubert: precomputed frames
         return inputs["frames"]
-    x = L.embed(params["embed"], inputs["tokens"],
+    x = L.embed(local.take(params, ("embed",)), inputs["tokens"],
                 scale=cfg.name.startswith("gemma"))
     if cfg.vis_tokens:                         # internvl2: patch prefix
         x = torch.cat([inputs["patches"].to(x.dtype), x], dim=1)
     return x
+
+
+def _head(params: Params) -> Params:
+    """The unembedding (gemma ties it to the embedding)."""
+    return local.take(params, ("head",) if "head" in params else ("embed",))
 
 
 def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
@@ -196,8 +203,7 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
                            impl=impl)
         x = L.rms_norm(x, local.seq_param(params["final_norm"]),
                        plus_one=cfg.sandwich_norm)
-        head = params.get("head", params["embed"])
-        return L.unembed(head, x, cfg.vocab, cap=cfg.final_softcap)
+        return L.unembed(_head(params), x, cfg.vocab, cap=cfg.final_softcap)
 
 
 def _stacked(n: int, leaves: Params, device) -> Params:
@@ -366,7 +372,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     the cache at ``pos .. pos+S-1``).  ``row_map`` ((B, L) host ints)
     routes pooled KV leaves through the paged engine's page table.  The
     cache is written in place and returned."""
-    x = L.embed(params["embed"], tokens, scale=cfg.name.startswith("gemma"))
+    x = L.embed(local.take(params, ("embed",)), tokens,
+                scale=cfg.name.startswith("gemma"))
     b, s, _ = x.shape
     cpos = L._positions_host(pos, b)
     positions = L._to_device(cpos[:, None] + torch.arange(s), x.device)
@@ -376,6 +383,5 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                            impl=impl, caches=cache, cache_pos=cpos,
                            pages=pages)
     x = L.rms_norm(x, params["final_norm"], plus_one=cfg.sandwich_norm)
-    head = params.get("head", params["embed"])
-    logits = L.unembed(head, x, cfg.vocab, cap=cfg.final_softcap)
+    logits = L.unembed(_head(params), x, cfg.vocab, cap=cfg.final_softcap)
     return logits, cache

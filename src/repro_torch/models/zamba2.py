@@ -25,7 +25,9 @@ concatenations, so their compute view is taken segment by segment
 by head, B and C (one group every head reads) whole.  B and C are then a
 replicated computation that each rank reads for its own heads only, so
 their gradient is summed over 'model' where they enter the SSD; and the
-gated RMS norm over the whole ``hp`` sums its squares over 'model'.
+gated RMS norm over the whole ``hp`` sums its squares over 'model'.  Under
+FSDP (``local.take``) ``in_proj`` is gathered over 'data' on its rows,
+which the segments on its columns leave alone.
 """
 from __future__ import annotations
 
@@ -245,18 +247,20 @@ def _run(params: Params, cfg: ModelConfig, x, *, positions, tp, impl,
         for li in range(per):
             st = None if cache is None else layer(
                 {"conv": cache["conv"], "ssd": cache["ssd"]}, gi, li)
-            x, new = _mamba_block(layer(params["layers"], gi, li), cfg, x,
-                                  tp, impl, state=st)
+            x, new = _mamba_block(local.take(params, ("layers",),
+                                             (gi, li)), cfg, x, tp, impl,
+                                  state=st)
             if st is not None:
                 for name, t in new.items():
                     st[name].copy_(t)
-        x = _shared_attn(params["shared"], cfg, x, positions=positions,
-                         tp=tp, impl=impl,
+        # the shared block's weights, gathered again at every call
+        x = _shared_attn(local.take(params, ("shared",)), cfg, x,
+                         positions=positions, tp=tp, impl=impl,
                          cache=None if cache is None
                          else layer(cache["attn"], gi),
                          cache_pos=cache_pos, pages=pages)
     x = L.rms_norm(x, params["final_norm"])
-    return L.unembed(params["head"], x, cfg.vocab)
+    return L.unembed(local.take(params, ("head",)), x, cfg.vocab)
 
 
 def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
@@ -264,7 +268,7 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
     """Full-sequence forward -> logits: every Mamba layer's recurrence goes
     through ``ops.mamba2`` and every shared-block call's attention through
     ``ops.attention`` (the kernels when ``impl='cuda'``)."""
-    x = L.embed(params["embed"], inputs["tokens"])
+    x = L.embed(local.take(params, ("embed",)), inputs["tokens"])
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     return _run(params, cfg, x, positions=positions, tp=tp, impl=impl)
@@ -373,7 +377,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     cache).  ``row_map`` ((B, L) host ints) routes the pooled attention KV
     through the paged engine's page table.  The cache is written in place
     and returned."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(local.take(params, ("embed",)), tokens)
     b, s, _ = x.shape
     cpos = L._positions_host(pos, b)
     positions = L._to_device(cpos[:, None] + torch.arange(s), x.device)

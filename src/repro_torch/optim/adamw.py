@@ -11,14 +11,17 @@ float32 temporaries stay small whatever the leaf (a layer-stacked leaf of a
 full-width model holds gigabytes); the arithmetic is elementwise, so the
 result is the same as over the whole leaf.
 
-On a mesh (:meth:`AdamW.shard`) the optimizer is ZeRO-1: the params are
-each rank's compute view (``distributed.local``; replicated over 'data'),
-the moments this view's slice over 'data' along the dim the param's spec
-shards over 'data' (``init_specs``: the moments keep the params' full
-specs, the params take ``zero1_specs``).  Each rank updates its slice of
-every param and the slices are all-gathered over 'data'.  The grads'
-global norm sums each leaf's squares over the 'model' ranks where the
-leaf is split over 'model' (once where it is replicated).
+On a mesh (:meth:`AdamW.shard`) the optimizer takes one of two layouts.
+ZeRO-1: the params are each rank's compute view (``distributed.local``;
+replicated over 'data'), the moments this view's slice over 'data' along
+the dim the param's spec shards over 'data' (``init_specs``: the moments
+keep the params' full specs, the params take ``zero1_specs``); each rank
+updates its slice of every param and the slices are all-gathered over
+'data'.  FSDP (``fsdp=True``, the reference's training layout): the params
+are each rank's shard by the full specs, the moments the same shard, and
+the update is local.  The grads' global norm sums each leaf's squares over
+the ranks that split it ('model', and under FSDP 'data'), once where the
+leaf is replicated.
 """
 from __future__ import annotations
 
@@ -80,25 +83,29 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 
 class _Leaf:
-    """How one param leaf lies on the mesh: the slice of its compute view
-    that this rank's moments hold (``sl``, None: the whole leaf) along
-    ``dim``, and which of its elements are split over 'model' (for the
-    global norm): ``split`` True/False, or a list of (length, split)
-    segments of dim ``seg_dim``."""
+    """How one param leaf lies on the mesh: the dim of its compute view
+    that ZeRO-1 slices over 'data' for this rank's moments (``dim``;
+    None: the moments are whole), whether FSDP cuts it over 'data'
+    (``fsdp_split``), and which of its elements are split over 'model'
+    (for the global norm): ``split`` True/False, or ``seg``, the (length,
+    split) segments of one dim."""
 
-    def __init__(self, spec, seg, mesh):
+    def __init__(self, spec, seg, mesh, fsdp: bool):
         names = tuple(mesh.mesh_dim_names)
         self.data = local.mesh_axis(mesh, "data")
         self.model = local.mesh_axis(mesh, "model")
         dims = mesh_dims_of(prune_specs(spec, ("data",)), names)
-        self.dim = next((d for d, m in enumerate(dims) if m), None)
+        self.dim = None if fsdp else next(
+            (d for d, m in enumerate(dims) if m), None)
+        self.fsdp_split = fsdp and local.fsdp_dim(spec, mesh) is not None
         self.seg = seg if self.model is not None else None
         self.split = self.model is not None and any(
             mesh_dims_of(prune_specs(spec, ("model",)), names))
 
     def slice(self, t: torch.Tensor):
         """(dim, start, length) of this rank's ZeRO-1 slice of the
-        compute-view leaf ``t``; None where the moments are whole."""
+        compute-view leaf ``t``; None where the moments are the param's
+        shape (whole, or FSDP)."""
         if self.dim is None or self.data is None:
             return None
         self.length = t.shape[self.dim]
@@ -135,28 +142,30 @@ class AdamW:
     def __init__(self, lr: float | Callable = 3e-4, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, clip_norm: float = 1.0):
+        # a constant rate is a fill on the step's device: no upload
         self.lr = lr if callable(lr) else (
-            lambda step: torch.tensor(lr, dtype=torch.float32,
-                                      device=step.device))
+            lambda step: torch.full_like(step, lr, dtype=torch.float32))
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
         self.mesh = None
-        self._specs = None
+        self.specs = None
+        self.fsdp = False
         self._leaves: dict[tuple, _Leaf] = {}
 
-    def shard(self, mesh, param_specs, segments: dict | None = None
-              ) -> "AdamW":
-        """Make this optimizer ZeRO-1 on ``mesh`` for params laid out by
+    def shard(self, mesh, param_specs, segments: dict | None = None,
+              fsdp: bool = False) -> "AdamW":
+        """Make this optimizer ZeRO-1 on ``mesh`` (or with ``fsdp`` FSDP:
+        the params each rank's shard by the specs) for params laid out by
         ``param_specs`` (the family's full specs; ``segments`` its
         ``compute_segments``).  Returns self."""
         segments = segments or {}
-        self.mesh, self._specs = mesh, param_specs
+        self.mesh, self.specs, self.fsdp = mesh, param_specs, fsdp
         self._leaves = {}
 
         def note(_spec, spec, path):
             key = tuple(k for k in path if isinstance(k, str))
-            self._leaves[path] = _Leaf(spec, segments.get(key), mesh)
+            self._leaves[path] = _Leaf(spec, segments.get(key), mesh, fsdp)
             return spec
         local.zip_specs(note, param_specs, param_specs)
         return self
@@ -166,7 +175,7 @@ class AdamW:
         ``leaves(tree)`` order."""
         out = []
         local.zip_specs(lambda t, s, path: out.append(self._leaves[path]),
-                         tree, self._specs)
+                        tree, self.specs)
         return out
 
     def init(self, params: Params) -> OptState:
@@ -178,7 +187,7 @@ class AdamW:
                 shape[sl[0]] = sl[2]
             return torch.zeros(shape, dtype=torch.float32, device=p.device)
         dev = next(iter(leaves(params))).device
-        if self._specs is None:
+        if self.specs is None:
             m, v = tree_map(zeros, params), tree_map(zeros, params)
         else:
             lays = iter(self._lays(params))
@@ -210,13 +219,21 @@ class AdamW:
         return OptState(P(), param_specs, param_specs)
 
     def _global_norm(self, grads: Params) -> torch.Tensor:
-        if self._specs is None:
+        if self.specs is None:
             return global_norm(grads)
-        split = rep = None
+        # sums of squares: [over 'model', replicated] of the leaves whole
+        # over 'data', then of those FSDP cuts over 'data'
+        sums = [None, None, None, None]
         for g, lay in zip(leaves(grads), self._lays(grads)):
-            a, b = lay.sq_parts(g)
-            split = a if split is None else split + a
-            rep = b if rep is None else rep + b
+            at = 2 if lay.fsdp_split else 0
+            for i, x in enumerate(lay.sq_parts(g)):
+                sums[at + i] = x if sums[at + i] is None else sums[at + i] + x
+        split, rep = sums[:2]
+        if sums[2] is not None:
+            cut = local.all_reduce(torch.stack(sums[2:]),
+                                   local.mesh_axis(self.mesh, "data").group)
+            split = cut[0] if split is None else split + cut[0]
+            rep = cut[1] if rep is None else rep + cut[1]
         model = local.mesh_axis(self.mesh, "model")
         if model is not None:
             split = local.all_reduce(split, model.group)
@@ -247,7 +264,7 @@ class AdamW:
             m.copy_(m2)
             v.copy_(v2)
 
-        lays = (self._lays(params) if self._specs is not None
+        lays = (self._lays(params) if self.specs is not None
                 else [None] * len(list(leaves(params))))
         for p, g, m, v, lay in zip(leaves(params), leaves(grads),
                                    leaves(state.m), leaves(state.v), lays):

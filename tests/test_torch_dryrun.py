@@ -10,8 +10,14 @@
   * in subprocesses (each starts and ends its own fake process group):
     ``gemma2-2b x decode_32k`` prints an ``OK`` line on both meshes (the
     reference's ``test_dryrun_cell_compiles``) and leaves no group behind,
-    ``qwen3-8b x long_500k`` prints ``SKIP``, and ``--mode fsdp`` is
-    refused;
+    ``qwen3-8b x long_500k`` prints ``SKIP``, and ``--mode fsdp`` (the
+    default) prints ``OK`` and exits 0;
+  * ``qwen3-8b x train_4k`` (2 layers) on 16x16: the FSDP cell's argument
+    bytes a rank are the shards of the reference's specs over its
+    ``jax.eval_shape`` params (params, two float32 moments), plus the
+    step and this rank's batch, and lie below ``zero1``'s; ``puredp``'s
+    specs are the reference's ``_puredp_specs`` and its argument bytes
+    their shards over all 256 ranks;
   * the per-device matmul FLOPs of ``gemma2-2b x decode_32k`` on 16x16
     are within 10% of the reference's HLO ``dot_flops`` for that cell;
   * the roofline's markdown builds from the port's record with the H100's
@@ -211,18 +217,89 @@ def test_lower_cell_leaves_no_process_group():
     assert res.stdout.strip().endswith("OK")
 
 
-def test_skip_and_refused_mode(capsys):
+def test_skip_and_refused_mode():
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen3-8b", "--shape", "long_500k"], cwd=ROOT, env=_env(),
         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("SKIP qwen3-8b x long_500k")
-    with pytest.raises(ValueError, match="fsdp"):
-        dryrun.lower_cell("qwen3-8b", "train_4k", mode="fsdp")
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--mode",
-                     "fsdp"])
-    assert e.value.code not in (0, None)
-    assert "FAIL qwen3-8b x train_4k x 16x16: ValueError: --mode fsdp" \
-        in capsys.readouterr().out
+    # --mode fsdp, once refused, runs (two layers keep it short)
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-8b", "--shape", "train_4k", "--mode", "fsdp", "--layers",
+         "2"], cwd=ROOT, env=_env(), capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK   qwen3-8b x train_4k x 16x16"), \
+        res.stdout
+
+
+_MODES = r"""
+import dataclasses, functools, json, math
+import jax, numpy as np
+from jax.sharding import PartitionSpec as JP
+import repro.launch.dryrun as ref_dryrun
+from repro.configs import get_config as ref_config
+from repro.models import family_module as ref_family
+from repro_torch.launch import dryrun
+from repro_torch.configs import get_config
+from repro_torch.models import family_module
+
+SIZES = {"data": 16, "model": 16}
+ROWS, SEQ = 256 // 16, 4096
+
+
+def shard_bytes(specs, params):
+    # one rank's shard of every leaf: each dim cut in ceil(n / k) rows
+    # over the axes its spec names; the leaf's dtype, then float32 twice
+    # (AdamW's moments)
+    out = [0]
+    def one(spec, leaf):
+        n = 1
+        for i, dim in enumerate(leaf.shape):
+            e = spec[i] if i < len(spec) else None
+            axes = () if e is None else ((e,) if isinstance(e, str) else e)
+            n *= -(-dim // math.prod(SIZES[a] for a in axes))
+        out[0] += n * (np.dtype(leaf.dtype).itemsize + 2 * 4)
+    jax.tree_util.tree_map(one, specs, params,
+                           is_leaf=lambda x: isinstance(x, JP))
+    return out[0]
+
+
+rcfg = dataclasses.replace(ref_config("qwen3-8b"), n_layers=2)
+mod = ref_family(rcfg)
+key = jax.random.PRNGKey(0)
+row = 2 * SEQ * 8            # tokens and labels a row, int64 in the port
+tp16 = jax.eval_shape(functools.partial(mod.init, rcfg, tp=16), key)
+tp1 = jax.eval_shape(functools.partial(mod.init, rcfg, tp=1), key)
+pure = ref_dryrun._puredp_specs(mod.specs(rcfg))
+want = {"fsdp": shard_bytes(mod.specs(rcfg), tp16) + 4 + ROWS * row,
+        "puredp": shard_bytes(pure, tp1) + 4 + 1 * row}
+cfg = get_config("qwen3-8b")
+same = jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+    lambda a, b: tuple(a) == tuple(b), pure,
+    dryrun._puredp_specs(family_module(cfg).specs(cfg)),
+    is_leaf=lambda x: isinstance(x, JP)))
+got = {m: dryrun.lower_cell("qwen3-8b", "train_4k", layers=2, mode=m)
+       for m in ("fsdp", "zero1", "puredp")}
+print(json.dumps({"want": want, "specs_same": len(same) > 0 and all(same),
+                  "got": {m: r["memory"]["argument_bytes"]
+                          for m, r in got.items()},
+                  "counts": got["fsdp"]["ops"]["collective_counts"]}))
+"""
+
+
+def test_fsdp_cell_holds_the_reference_specs_shards():
+    res = subprocess.run([sys.executable, "-c", _MODES], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    r = json.loads(res.stdout.strip().splitlines()[-1])
+    assert r["specs_same"], r
+    assert r["got"]["fsdp"] == r["want"]["fsdp"], r
+    assert r["got"]["puredp"] == r["want"]["puredp"], r
+    assert r["got"]["fsdp"] < r["got"]["zero1"], r
+    # each layer's weights all-gathered, their grads reduce-scattered (as
+    # all-reduces)
+    assert r["counts"]["all-gather"] > 0 and r["counts"]["all-reduce"] > 0

@@ -11,6 +11,9 @@ costs no more than the steps since the last checkpoint).
   ``--grad-compression`` (whose error-feedback residual is checkpointed).
 * A checkpoint written without the residual still restores, with a
   warning.
+* ``segment_sum_rows``, made free of host syncs (ROADMAP C.3), gives the
+  bits of its earlier version (copied here) on seeded ids with long runs,
+  no repeats and one id.
 """
 import dataclasses
 import json
@@ -56,6 +59,52 @@ def test_segment_sum_matches_the_plain_gather_and_keeps_its_bits():
     want_b = torch.zeros_like(table).index_add_(0, ids.reshape(-1),
                                                 gb.float().reshape(-1, 256))
     torch.testing.assert_close(gt.float(), want_b, rtol=1e-2, atol=1e-2)
+
+
+def _segment_sum_before(grad, ids, rows):
+    """``segment_sum_rows`` as it stood with host syncs (run lengths read
+    back to size its levels and masks), the bits to keep."""
+    d = grad.shape[-1]
+    ids = ids.reshape(-1)
+    vals = grad.reshape(-1, d).float()
+    ids_sorted, order = torch.sort(ids, stable=True)
+    vals = vals[order]
+    uniq, counts = torch.unique_consecutive(ids_sorted, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    run = torch.repeat_interleave(torch.arange(len(uniq)), counts)
+    pos = torch.arange(len(ids)) - starts[run]
+    cnt = counts[run]
+    longest = int(counts.max()) if len(counts) else 0
+    stride = 1
+    while stride < longest:
+        recv = torch.nonzero(((pos % (2 * stride)) == 0)
+                             & (pos + stride < cnt))[:, 0]
+        vals[recv] = vals[recv] + vals[recv + stride]
+        stride *= 2
+    out = vals.new_zeros((rows, d))
+    out[uniq] = vals[starts]
+    return out
+
+
+SEGMENT_IDS = {
+    "long-runs": lambda rng: rng.integers(0, 5, size=(4, 300)),
+    "no-repeats": lambda rng: rng.permutation(1000)[:777].reshape(7, 111),
+    "one-id": lambda rng: np.full((3, 50), 7),
+    "mixed": lambda rng: rng.integers(0, 40, size=(8, 257)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SEGMENT_IDS))
+def test_segment_sum_keeps_the_bits_of_its_synced_version(case, dtype):
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(SEGMENT_IDS[case](rng))
+    g = torch.from_numpy(rng.standard_normal((*ids.shape, 33))
+                         .astype(np.float32)).to(dtype)
+    got = segment_sum_rows(g, ids, 1000)
+    want = _segment_sum_before(g, ids, 1000)
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
