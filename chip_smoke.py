@@ -200,7 +200,29 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      its param and moment bytes, peak memory, step time and collectives
      for both; (c) (b)'s FSDP checkpoint restored onto a one-rank mesh,
      every leaf bit for bit (b)'s whole params.
-
+ 23. the experiment scripts (``repro_torch.bench``) on the card: (a)
+     ``kernel_micro``'s four kernels (gemm 512^3 f32, flash_attention b1
+     s1024 h8/2 d64 bf16 on the tensor-core route, rwkv6 and mamba2 at b1
+     s512 h8 f32) each checked against its plain version at this smoke's
+     tolerances, then timed by CUDA events and by graph replay beside its
+     bound, their launches counted from that run alone; then three
+     processes at once: (b) on the card in a process of its own
+     (``chip_smoke.py --phase23-figs``), fig7, fig11, the Q-learning
+     ablation, fig10 (3 seeds), Table III, bench_sw_dse and
+     bench_calibration at the reference's settings, each ``main()`` with
+     its rows printed: every number finite, every script allocating on the
+     card, bench_sw_dse's engines in parity with the same
+     ``codesign(q=4)`` solution, bench_calibration's gemm launches
+     counted; (c) here, bench_serve (uniform and the 10:1 mix), bench_obs
+     and bench_serve_tp's ``model=1`` (a one-rank NCCL group) at full
+     width, qwen3-8b in float32: outputs identical across engines and
+     traced/untraced runs, no lifecycle defect, a valid telemetry schema,
+     ``model=1`` bit for bit; (d) on the CPU with the card hidden
+     (``chip_smoke.py --phase23-cpu``): bench_serve_tp's 8-way scenario (8
+     gloo ranks) and its TP-aware codesign, then bench_acquisition
+     (hypervolume parity required); last, bench_batched_eval alone.  A
+     correctness gate that fails ends the smoke; each speed gate prints
+     ``gate <name> pass|MISS <reading>`` and a miss is a reading.
 Each model is freed before the next one is drawn.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -442,6 +464,10 @@ def main() -> int:
         return phase21_placements()
     if sys.argv[1:2] == ["--phase22-rank"]:
         return phase22_rank()
+    if sys.argv[1:2] == ["--phase23-cpu"]:
+        return phase23_cpu()
+    if sys.argv[1:2] == ["--phase23-figs"]:
+        return phase23_figs()
     import torch
     require(torch.cuda.is_available(), "no CUDA device: this smoke runs on the "
             "card only")
@@ -635,6 +661,11 @@ def main() -> int:
           "against two ranks sharing the card, ZeRO-1's bytes beside, and "
           "the checkpoint restored onto one rank")
     run_fsdp(torch)
+
+    phase("23. the experiment scripts on the card: kernel_micro, the "
+          "figures and Table III, the DSE and calibration benchmarks, the "
+          "serving gates at full width")
+    run_bench(torch, rows)
 
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
     require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
@@ -2812,13 +2843,16 @@ DRYRUN_CELLS = (("qwen3-8b", "qwen3-8b", "train_4k", ()),
                 ("rwkv6-3b", "rwkv6-3b", "long_500k", ()))
 
 
-def _spawn(args: list[str], tag: str):
-    """``python <args>`` from the checkout with the card hidden, its output
-    in build/phase21/<tag>.{out,err}."""
-    logs = ROOT / "build" / "phase21"
+def _spawn(args: list[str], tag: str, phase_dir: str = "phase21",
+           hide_card: bool = True):
+    """``python <args>`` from the checkout, the card hidden unless
+    ``hide_card`` is false; its output in
+    build/<phase_dir>/<tag>.{out,err}."""
+    logs = ROOT / "build" / phase_dir
     logs.mkdir(parents=True, exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
-           "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    if hide_card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
     so = open(logs / f"{tag}.out", "w+")
     se = open(logs / f"{tag}.err", "w+")
     proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
@@ -2839,7 +2873,7 @@ def _finish(job, deadline: float) -> str:
     out, err = job.so.read(), job.se.read()
     job.so.close()
     job.se.close()
-    require(job.proc.returncode == 0, f"phase 21 {job.tag} exited "
+    require(job.proc.returncode == 0, f"{job.tag} exited "
             f"{job.proc.returncode}: {err[-3000:]}")
     return out
 
@@ -3426,6 +3460,366 @@ def run_fsdp(torch) -> None:
     shutil.rmtree(FSDP_DIR / "ckpt")
     torch.cuda.empty_cache()
     print(f"  phase 22 took {time.perf_counter() - t_all:.1f} s")
+
+
+# -- phase 23: the experiment scripts and the serving gates ------------------
+
+# (b)'s scripts at the reference's settings, in this order, in a process of
+# their own on the card while (c) runs; each one's main() with its output
+# captured, and each must allocate on the card (the DQNs; bench_calibration's
+# kernels)
+BENCH_FIGS = ("fig7_intrinsics", "fig11_sw_dse", "ablation_qlearning",
+              "fig10_hw_dse", "table3_codesign", "bench_sw_dse",
+              "bench_calibration")
+# the host-numpy gated scripts: bench_acquisition (~1 min) with (d) in the
+# CPU subprocess; bench_batched_eval (~1 s) at the end, alone on the host,
+# since a busy host moves its 10x reading
+BENCH_HOST = ("bench_acquisition",)
+BENCH_LAST = "bench_batched_eval"
+# kernel_micro's rows by the names of the kernels JSON line
+MICRO_ROWS = {"gemm": "gemm", "flash_attention": "flash_attention",
+              "rwkv6": "rwkv6", "mamba2_ssd": "mamba2"}
+BENCH_DIR = ROOT / "build" / "phase23"
+
+
+def _gate(name: str, ok: bool, reading: str) -> bool:
+    print(f"  gate {name} {'pass' if ok else 'MISS'} {reading}", flush=True)
+    return ok
+
+
+def _csv_numbers_finite(out: str) -> list[str]:
+    """The fields of the printed CSV rows that read as numbers but are not
+    finite (an empty list where every row is finite)."""
+    bad = []
+    for line in out.splitlines():
+        if line.startswith("#") or "," not in line:
+            continue
+        for field in line.split(","):
+            try:
+                x = float(field)
+            except ValueError:
+                continue
+            if not math.isfinite(x):
+                bad.append(line)
+                break
+    return bad
+
+
+def _run_script(name: str, device: str = "cuda") -> tuple[str, float, int]:
+    """``repro_torch.bench.<name>.main(["--device", device])`` with its
+    standard output captured: (output, seconds, exit code of a gate)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.bench.{name}")
+    buf = io.StringIO()
+    code = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            mod.main(argv=["--device", device])
+        except SystemExit as e:      # a gated script that missed its gate
+            code = e.code if isinstance(e.code, int) else 1
+    return buf.getvalue(), time.perf_counter() - t0, code
+
+
+def check_micro(torch) -> None:
+    """(a) each of kernel_micro's kernels against its plain version on the
+    same inputs, at the smoke's tolerances (the recurrences' atol scaled by
+    the call's largest value, as ``_CheckedOps`` does: these inputs are not
+    normalised); flash attention on its tensor-core route."""
+    from repro_torch.bench import kernel_micro
+    from repro_torch.kernels import flash_attention
+
+    tc0 = flash_attention.route_launches["tc"]
+    for c in kernel_micro.cases("cuda"):
+        got, want = c["call"](), c["plain"]()
+        if c["kernel"] == "gemm":
+            rtol, atol = TOL["gemm"]["float32"]
+        elif c["kernel"] == "flash_attention":
+            rtol, atol = FLASH_TOL["bfloat16"]
+        else:
+            rtol, atol = LIN_TOL["float32"]
+            atol *= max(1.0, float(want.float().abs().max()))
+        err = _close(torch, got, want, rtol, atol)
+        print(f"  {c['kernel']} {c['shape']} {c['dtype']}: max abs err "
+              f"{err:.3g} against its plain version (rtol {rtol}, atol "
+              f"{atol:.3g})")
+    require(flash_attention.route_launches["tc"] == tc0 + 1,
+            "kernel_micro's bfloat16 attention left the tensor-core route")
+
+
+def _bench_micro(torch, by_name: dict) -> None:
+    """(a): kernel_micro checked, then timed with its launches counted
+    from that run alone; its rows join the kernels line."""
+    from repro_torch.bench import kernel_micro
+
+    print("(a) kernel_micro: the reference's four rows at its shapes")
+    check_micro(torch)
+    _read_launches(reset=True)
+    t0 = time.perf_counter()
+    micro = kernel_micro.run("cuda")
+    launches = _read_launches()
+    for m in micro:
+        name = MICRO_ROWS[m["kernel"]]
+        require(launches[name] > 0, f"kernel_micro launched no {name}")
+        require(m["finite"], f"kernel_micro {name}: non-finite output")
+        print(f"  {m['kernel']:15s} {m['shape']:14s} {m['dtype']:8s} "
+              f"{m['us_per_call']:.2f} us a call by events, replayed "
+              f"{m['us_per_call_graph']:.2f} us ({m['gflops']:.1f} "
+              f"GFLOP/s); plain {m['plain_us_per_call']:.2f} us; bound "
+              f"{m['bound_us']:.2f} us by {m['bound_by']}; launches "
+              f"{launches[name]}; max abs err {m['max_abs_err']:.3g}")
+        if name in by_name:
+            by_name[name]["bench_micro"] = {
+                "launches": launches[name],
+                **{k: m[k] for k in ("shape", "dtype", "max_abs_err",
+                                     "us_per_call", "us_per_call_graph",
+                                     "plain_us_per_call", "bound_us",
+                                     "bound_by", "gflops")}}
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+
+def _bench_figures(res: dict, by_name: dict, speed: list[bool]) -> None:
+    """(b): each script's rows, wall clock, allocations on the card and
+    launches, from ``phase23_figs``; every number finite and every script
+    allocating on the card."""
+    from repro_torch.bench import bench_sw_dse
+
+    print("(b) the figures, Table III, the DSE and calibration benchmarks at "
+          "the reference's settings, the DQNs on the card, in a process of "
+          "their own while (c) ran")
+    for name in BENCH_FIGS:
+        r_ = res[name]
+        for line in r_["out"].strip().splitlines():
+            print(f"    {line}")
+        print(f"  {name}: {r_['seconds']:.1f} s of wall clock, exit "
+              f"{r_['exit']}, {r_['allocations']} allocations on the card")
+        bad = _csv_numbers_finite(r_["out"])
+        require(not bad, f"{name}: non-finite rows {bad[:3]}")
+        require(r_["allocations"] > 0, f"{name} ran nothing on the card")
+    gemm = res["bench_calibration"]["launches"]["gemm"]
+    require(gemm > 0, "bench_calibration launched no gemm")
+    by_name["gemm"]["calibration_launches"] = gemm
+    print(f"  bench_calibration launched gemm {gemm} times")
+    m = res["bench_sw_dse"]["metrics"]
+    require(m["round_loop_parity"], "bench_sw_dse: the batched engine's "
+            "schedules or latencies differ from the per-search engine's")
+    require(m["codesign_q4_identical"], "bench_sw_dse: codesign(q=4) "
+            "committed another solution")
+    speed.append(_gate("bench_sw_dse_round_loop>=5x",
+                       m["round_loop_speedup"] >= bench_sw_dse.TARGET_SPEEDUP,
+                       f"{m['round_loop_speedup']}x"))
+    speed.append(_gate("bench_sw_dse_codesign_q4_faster",
+                       m["codesign_q4_batched_s"]
+                       < m["codesign_q4_reference_s"],
+                       f"{m['codesign_q4_speedup']}x"))
+
+
+def _host_gate(name: str, r_: dict, speed: list[bool]) -> None:
+    """A host-numpy gated script's rows and its 10x gate."""
+    from repro_torch.bench import bench_acquisition
+
+    for line in r_["out"].strip().splitlines():
+        print(f"    {line}")
+    print(f"  {name}: {r_['seconds']:.1f} s of wall clock, exit {r_['exit']}")
+    bad = _csv_numbers_finite(r_["out"])
+    require(not bad, f"{name}: non-finite rows {bad[:3]}")
+    m = r_["metrics"]
+    if name == "bench_acquisition":
+        require(m["hv_parity_rel_err"] <= bench_acquisition.HV_PARITY_RTOL,
+                f"bench_acquisition: hypervolume parity "
+                f"{m['hv_parity_rel_err']}")
+        sp = m["hvi_speedup"]
+    else:
+        sp = m["worst_speedup_batched"]
+    speed.append(_gate(f"{name}>=10x", sp >= m["target_speedup"], f"{sp}x"))
+
+
+def _bench_serving(torch, speed: list[bool]) -> dict:
+    """(c): the serving gates at full width on one model; returns
+    bench_serve_tp's model=1 metrics."""
+    import torch.distributed as dist
+
+    from repro_torch.bench import bench_obs, bench_serve, bench_serve_tp
+
+    print("(c) the serving gates at full width: qwen3-8b, float32")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, params = bench_serve.model("cuda", full_width=True)
+    print(f"  {cfg.name}: d {cfg.d_model}, {cfg.n_layers} layers, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    _read_launches(reset=True)
+    t0 = time.perf_counter()
+    m = bench_serve.run(cfg, params)
+    print(f"  bench_serve uniform: {json.dumps(m)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    require(m["outputs_identical"], "bench_serve: batched and sequential "
+            "outputs differ")
+    speed.append(_gate("bench_serve>=2x",
+                       m["speedup"] >= bench_serve.TARGET_SPEEDUP,
+                       f"{m['speedup']}x ({m['tok_s_batched']} against "
+                       f"{m['tok_s_sequential']} tokens/s)"))
+    t0 = time.perf_counter()
+    mm = bench_serve.run_mixed(cfg, params)
+    print(f"  bench_serve mixed: {json.dumps(mm)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    require(mm["outputs_identical"], "bench_serve mixed: outputs differ "
+            "across the sequential, pinned and paged engines")
+    speed.append(_gate("bench_serve_mixed>=2x",
+                       mm["speedup_paged"] >= bench_serve.TARGET_SPEEDUP,
+                       f"{mm['speedup_paged']}x ({mm['tok_s_paged']} against "
+                       f"{mm['tok_s_sequential']} tokens/s)"))
+    speed.append(_gate("bench_serve_mixed_p95_paged<pinned",
+                       mm["p95_queue_paged_s"] < mm["p95_queue_pinned_s"],
+                       f"{mm['p95_queue_paged_s']} s against "
+                       f"{mm['p95_queue_pinned_s']} s"))
+    t0 = time.perf_counter()
+    mo = bench_obs.run(cfg, params, art_dir=BENCH_DIR)
+    print(f"  bench_obs: {json.dumps(mo)} ({time.perf_counter() - t0:.1f} s)")
+    require(mo["outputs_identical"], "bench_obs: traced and untraced "
+            "outputs differ")
+    require(not mo["lifecycle_defects"], f"bench_obs: lifecycle defects "
+            f"{mo['lifecycle_defects'][:3]}")
+    require(not mo["schema_errors"], f"bench_obs: telemetry schema errors "
+            f"{mo['schema_errors'][:3]}")
+    speed.append(_gate("bench_obs>=0.97x",
+                       mo["overhead_ratio"] >= bench_obs.MIN_RATIO,
+                       f"{mo['overhead_ratio']}x ({mo['tok_s_traced']} "
+                       f"against {mo['tok_s_untraced']} tokens/s)"))
+    t0 = time.perf_counter()
+    m1 = bench_serve_tp.run_model1(cfg, params)
+    print(f"  bench_serve_tp model=1: {json.dumps(m1)} "
+          f"({time.perf_counter() - t0:.1f} s) on a one-rank "
+          f"{dist.get_backend()} group")
+    require(m1["outputs_identical"], "bench_serve_tp: the model=1 mesh's "
+            "outputs differ from no mesh's")
+    launched = ", ".join(f"{k} {v}" for k, v in _read_launches().items()
+                         if v) or "none"
+    print(f"  kernel launches in (c): {launched} (both engines prefill and "
+          f"decode qwen3-8b with plain attention over the cache, as the "
+          f"reference's do)")
+    del params
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return m1
+
+
+def _bench_cpu(res: dict, m1: dict, speed: list[bool]) -> None:
+    """(d): the CPU subprocess's results: the 8-way scenario, codesign and
+    the host-numpy gated scripts."""
+    from repro_torch.bench import bench_serve_tp
+
+    m8, mc = res["tp8"], res["codesign"]
+    print(f"  tp8: identical {m8['outputs_identical']}, "
+          f"{m8['tok_s_tp8']} tokens/s on 8 ranks against "
+          f"{m8['tok_s_single']} on one; codesign: {json.dumps(mc)} "
+          f"({res['seconds']:.1f} s)")
+    require(m8["outputs_identical"], "bench_serve_tp: 8 ranks' tokens "
+            "differ from one rank's")
+    require(bench_serve_tp.gate(m1, m8, mc), f"bench_serve_tp: the TP-aware "
+            f"codesign did not commit another, faster solution: {mc}")
+    for name in BENCH_HOST:
+        _host_gate(name, res["scripts"][name], speed)
+
+
+def run_bench(torch, rows: list[dict]) -> None:
+    """Phase 23: the ported experiment scripts (``repro_torch.bench``) on
+    the card.  (a) kernel_micro, checked then timed, alone; then three
+    processes at once: (b) the figures, Table III and the DSE and
+    calibration benchmarks at the reference's settings, on the card in a
+    process of their own (``phase23_figs``); (c) the serving gates at full
+    width (qwen3-8b, float32) here; (d) the 8-way tensor-parallel scenario,
+    the TP-aware codesign and bench_acquisition on the CPU with the card
+    hidden (``phase23_cpu``); last, bench_batched_eval alone.  A
+    correctness gate that fails ends the smoke; a speed gate's miss is a
+    reading."""
+    t_all = time.perf_counter()
+    by_name = {r_["name"]: r_ for r_ in rows}
+    speed: list[bool] = []
+    _bench_micro(torch, by_name)
+    smoke = str(ROOT / "chip_smoke.py")
+    jobs = {"cpu": _spawn([smoke, "--phase23-cpu"], "cpu", "phase23"),
+            "figs": _spawn([smoke, "--phase23-figs"], "figs", "phase23",
+                           hide_card=False)}
+    try:
+        m1 = _bench_serving(torch, speed)
+        t0 = time.perf_counter()
+        deadline = t0 + 600
+        res = {k: json.loads(_finish(j, deadline).strip().splitlines()[-1])
+               for k, j in jobs.items()}
+        print(f"  waited {time.perf_counter() - t0:.1f} s for (b) and (d)")
+    finally:
+        for j in jobs.values():        # a check above failed: stop them
+            if j.proc.poll() is None:
+                j.proc.kill()
+                j.proc.wait()
+    _bench_figures(res["figs"], by_name, speed)
+    print("(d) on the CPU with the card hidden, while (b) and (c) ran: "
+          "bench_serve_tp's 8-way scenario and codesign, then "
+          "bench_acquisition")
+    _bench_cpu(res["cpu"], m1, speed)
+    print(f"then {BENCH_LAST} alone")
+    out, sec, code = _run_script(BENCH_LAST)
+    _host_gate(BENCH_LAST, {
+        "out": out, "seconds": sec, "exit": code, "metrics": importlib_attr(
+            BENCH_LAST, "LAST_METRICS")}, speed)
+    print(f"  {sum(speed)} of {len(speed)} speed gates pass; phase 23 took "
+          f"{time.perf_counter() - t_all:.1f} s")
+
+
+def phase23_figs() -> int:
+    """Phase 23 (b), a process on the card: each of ``BENCH_FIGS``'s
+    ``main()`` with its output, wall clock, allocations on the card and
+    launches, and bench_sw_dse's metrics; one JSON line."""
+    import torch
+    require(torch.cuda.is_available(), "no CUDA device for phase 23 (b)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    allocs = lambda: torch.cuda.memory_stats().get(  # noqa: E731
+        "allocation.all.allocated", 0)
+    res = {}
+    for name in BENCH_FIGS:
+        _read_launches(reset=True)
+        a0 = allocs()
+        out, sec, code = _run_script(name)
+        res[name] = {"out": out, "seconds": sec, "exit": code,
+                     "allocations": allocs() - a0,
+                     "launches": _read_launches()}
+    res["bench_sw_dse"]["metrics"] = importlib_attr("bench_sw_dse",
+                                                    "LAST_METRICS")
+    print(json.dumps(res))
+    return 0
+
+
+def importlib_attr(name: str, attr: str):
+    """``repro_torch.bench.<name>.<attr>``."""
+    import importlib
+    return getattr(importlib.import_module(f"repro_torch.bench.{name}"), attr)
+
+
+def phase23_cpu() -> int:
+    """Phase 23 (d), a process with the card hidden: bench_serve_tp's
+    8-way scenario (8 gloo ranks) and its codesign scenario on the CPU,
+    then bench_acquisition; one JSON line."""
+    from repro_torch.bench import bench_serve_tp
+
+    t0 = time.perf_counter()
+    m8 = bench_serve_tp.run_tp8(store_dir=BENCH_DIR / "tp8")
+    m8.pop("outs")
+    mc = bench_serve_tp.run_codesign("cpu")
+    seconds = time.perf_counter() - t0
+    scripts = {}
+    for name in BENCH_HOST:
+        out, sec, code = _run_script(name, "cpu")
+        scripts[name] = {"out": out, "seconds": sec, "exit": code,
+                         "metrics": importlib_attr(name, "LAST_METRICS")}
+    print(json.dumps({"tp8": m8, "codesign": mc, "seconds": seconds,
+                      "scripts": scripts}))
+    return 0
 
 
 if __name__ == "__main__":

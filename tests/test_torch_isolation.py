@@ -1,12 +1,14 @@
-"""The port (``repro_torch``), ``chip_smoke.py``,
-``examples/quickstart_torch.py`` and ``examples/train_lm_torch.py`` stand
+"""The port (``repro_torch``, its ``bench`` scripts included),
+``chip_smoke.py`` and the port's examples (``examples/*_torch.py``) stand
 alone: they import neither JAX nor anything of the reference package
-``repro``, nor ``ml_dtypes`` (the card's machine has none).
+``repro``, nor the reference's ``benchmarks``, nor ``ml_dtypes`` (the
+card's machine has none).
 
-Checked twice: dynamically, by importing every port module in a fresh
-interpreter where ``jax`` is blocked and a meta-path hook refuses
-``repro``/``repro.*``; and statically, by scanning every import statement
-of the port's files, of ``chip_smoke.py`` and of the quickstart.
+Checked twice: dynamically, by importing every port module and every port
+example in a fresh interpreter where ``jax`` is blocked and a meta-path
+hook refuses ``repro``/``repro.*`` and ``benchmarks``/``benchmarks.*``;
+and statically, by scanning every import statement of the port's files, of
+``chip_smoke.py`` and of the examples.
 """
 import ast
 import os
@@ -19,6 +21,10 @@ PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 TRAIN_EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
+SERVE_EXAMPLE = ROOT / "examples" / "serve_lm_torch.py"
+CONVNET_EXAMPLE = ROOT / "examples" / "codesign_convnet_torch.py"
+EXAMPLES = [QUICKSTART, TRAIN_EXAMPLE, SERVE_EXAMPLE, CONVNET_EXAMPLE]
+REFUSED = ("jax", "jaxlib", "repro", "ml_dtypes", "benchmarks")
 
 
 def _port_modules() -> list[str]:
@@ -33,20 +39,25 @@ def _port_modules() -> list[str]:
 
 
 _PROBE = r"""
-import importlib, importlib.abc, sys
+import importlib, importlib.abc, importlib.util, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["ml_dtypes"] = None    # nor `import ml_dtypes`
 
 class RefuseReference(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "repro" or name.startswith("repro."):
+        if name.split(".")[0] in ("repro", "benchmarks"):
             raise ImportError(f"repro_torch imported the reference: {name}")
         return None
 
 sys.meta_path.insert(0, RefuseReference())
 for mod in sys.argv[1:]:
-    importlib.import_module(mod)
-assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
+    if mod.endswith(".py"):        # an example: load the file, run no main
+        spec = importlib.util.spec_from_file_location("example", mod)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    else:
+        importlib.import_module(mod)
+assert not any(m.split(".")[0] in ("repro", "benchmarks")
+               for m in sys.modules)
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("imported", len(sys.argv) - 1)
 """
@@ -74,7 +85,23 @@ def test_every_port_module_imports_without_jax_or_reference():
             "repro_torch.analysis.sharding_lint",
             "repro_torch.analysis.trace_audit",
             "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
-            "repro_torch.launch.roofline"} <= set(mods)
+            "repro_torch.launch.roofline", "repro_torch.bench",
+            "repro_torch.bench._results", "repro_torch.bench.run",
+            "repro_torch.bench.kernel_micro",
+            "repro_torch.bench.fig7_intrinsics",
+            "repro_torch.bench.fig10_hw_dse",
+            "repro_torch.bench.fig11_sw_dse",
+            "repro_torch.bench.table3_codesign",
+            "repro_torch.bench.ablation_qlearning",
+            "repro_torch.bench.bench_batched_eval",
+            "repro_torch.bench.bench_acquisition",
+            "repro_torch.bench.bench_sw_dse",
+            "repro_torch.bench.bench_calibration",
+            "repro_torch.bench.bench_serve",
+            "repro_torch.bench.bench_obs",
+            "repro_torch.bench.bench_serve_tp"} <= set(mods)
+    assert all(f.exists() for f in EXAMPLES)
+    mods += [str(f) for f in EXAMPLES]
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
@@ -94,8 +121,9 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_file_of_the_port_or_the_smoke_names_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE, QUICKSTART, TRAIN_EXAMPLE]
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, *EXAMPLES]
     assert all(f.exists() for f in files)
+    assert PORT / "bench" / "run.py" in files
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
-           if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
+           if n.split(".")[0] in REFUSED]
     assert bad == []
