@@ -10,8 +10,8 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
   1. the card's name and power limit (``nvidia-smi``), torch and CUDA
      versions; TF32 off for PyTorch's float32 products and convolutions;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed); no
-     flash tensor-core (D 80, 128), GEMM/conv tile, mamba2 or rwkv6 kernel
-     (nor their shared state pass) spills;
+     flash tensor-core (D 80, 128), GEMM/conv tile, mamba2, rwkv6 or
+     bank_mm kernel (nor the recurrences' shared state pass) spills;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and at ragged shapes with odd blocks, float32 and
      bfloat16, with the tolerances of ``tests/test_kernels.py``; ``dot``,
@@ -22,9 +22,13 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      and conv2d case printing its plan (tile, splits, CTAs); ``dot`` gives
      the same bits at bk 96, 2048 and 131072 at 2^24, on aligned views and
      on views off a 16-byte boundary by equal and by different offsets;
+     ``bank_mm``, the DQN bank's product (port-only), at each of the
+     bank's calls (transposed views and a broadcast row of ones too) gives
+     a slot the same bits in a 16-, a 4- and a 1-slot call, and twice;
   4. the main path: ``python -m repro_torch.tuner ... --measure --backend
      cuda`` for two applications at the paper's sizes into a fresh tuning
-     DB, with every kernel's launch count read from that run alone; the
+     DB, with every kernel's launch count read from that run alone (the
+     DQN bank's ``bank_mm`` too, and its commonest call signature); the
      distinct measured times of the gemm and conv2d candidates with their
      plans, and whether gemm_conv's commit moved from the one made while a
      CTA owned one whole block; then a tuned ``ops.matmul`` resolves its
@@ -34,7 +38,8 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      back to back from Python and replayed from a CUDA graph (device time
      without the host's launch cost), with the host time a call; gemv also
      in bfloat16; gemm and conv2d with their plans, and timed at one block
-     of every legal tile class; dot with its plan (CTAs, span);
+     of every legal tile class; dot with its plan (CTAs, span); bank_mm at
+     phase 4's commonest call;
   6. the flash attention kernel against its plain version on the card,
      float32 and bfloat16, at the forward's shape and at ragged ones (Sq <
      Skv and Sq > Skv, head dims 80/128/256, GQA, soft-cap, window, strided
@@ -155,8 +160,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      ``make_prefill_step(mesh=...)`` (H 16 / KV 4 a rank, 36
      ``flash_attention`` launches a rank on the tensor-core route, each
      call checked against its plain version, logits against phase 7's by
-     cosine), and zamba2-2.7b in float32 on the paged engine (40 SSD heads a
-     rank), token for token the single-device engine's, its ``mamba2``
+     cosine), and zamba2-2.7b in float32, whole, on the paged engine (40
+     SSD heads a rank) serving the first 2 of phase 17's 8 requests, token
+     for token the single-device engine's on the same 2, its ``mamba2``
      launches counted and each call checked; (c) a reduced zamba2-2.7b
      data-parallel ZeRO-1 step, each rank taking half the global batch,
      against one process on the whole batch; (d) that state checkpointed
@@ -207,7 +213,11 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      tolerances, then timed by CUDA events and by graph replay beside its
      bound, their launches counted from that run alone; then three
      processes at once: (b) on the card in a process of its own
-     (``chip_smoke.py --phase23-figs``), fig7, fig11, the Q-learning
+     (``chip_smoke.py --phase23-figs``), first the DQN bank: slot i of a
+     16-seed bank, of a 4-seed bank and of the 1-seed bank of seed i, and
+     a standalone DQN, bit for bit equal after 12 ragged rounds at the
+     DSE's widths, and a bank's graph-replayed rounds bit for bit its
+     eager ones, each required; then fig7, fig11, the Q-learning
      ablation, fig10 (3 seeds), Table III, bench_sw_dse and
      bench_calibration at the reference's settings, each ``main()`` with
      its rows printed: every number finite, every script allocating on the
@@ -294,6 +304,9 @@ KERNEL_META = {
                "src/repro/kernels/conv2d.py:47"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:108"),
+    # port-only: no TPU kernel; the reference's bank runs XLA's dot here
+    "bank_mm": ("src/repro_torch/csrc/bank_mm.cu",
+                "src/repro/core/qlearning.py:182"),
 }
 
 # flash attention (rtol, atol): float32 is tests/test_kernels.py:78's (the
@@ -419,6 +432,10 @@ TP_FWD_COSINE = 0.9995
 # and an element whose grad is at its rounding noise moves by up to that
 DP_TOL = dict(loss=1e-5, grad=1e-4, param_updates=0.5)
 DP_TRAIN = dict(arch="zamba2-2.7b", seq=64, batch=4, lr=1e-2)
+# (b)'s zamba2-2.7b served at model=2, whole and in float32: the first
+# TP_ZAMBA_REQUESTS of phase 17's requests (two gloo ranks on one card serve
+# at a few tokens/s, so the requests' prefill chunks set the phase's time)
+TP_ZAMBA_REQUESTS = 2
 # phase 22: zamba2-2.7b at full width, its depth cut to FSDP_TRAIN's layer
 # groups (of the config's 9; a group is 6 Mamba-2 layers and a shared-block
 # call), float32, one AdamW step on a global batch of 2 x 512 tokens: one
@@ -514,7 +531,7 @@ def main() -> int:
         require(line.endswith(" 0 bytes spilled"), f"a tile spills: {line}")
     # the chunk-parallel mamba2 and rwkv6 kernels and their shared state
     # pass: no spills in any pass or route
-    for prefix in ("mamba2_", "rwkv6_", "state_pass_"):
+    for prefix in ("mamba2_", "rwkv6_", "state_pass_", "bank_mm_"):
         lines = [ln for ln in report if ln.startswith(prefix)]
         require(bool(lines) or not info["log"],
                 f"no ptxas report for {prefix}*")
@@ -524,13 +541,15 @@ def main() -> int:
 
     phase("3. kernels against their plain versions")
     check_kernels(torch)
+    check_bank_mm(torch)
 
     phase("4. main path: measured co-design on the card")
-    launches, db = run_main_path(torch)
+    launches, db, bank_sig = run_main_path(torch)
 
     phase("5. timings at the main path's shapes and blocks")
     rows = time_kernels(torch, db, launches, rates)
-    for r in rows:
+    rows.append(time_bank_mm(torch, launches["bank_mm"], bank_sig, rates))
+    for r in rows[:-1]:
         print(f"  {r['name']:7s} {r['ms']:.4f} ms (blocks {r['blocks']}; "
               f"default blocks {r['ms_default_blocks']:.4f} ms)  bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}  plain "
@@ -668,7 +687,7 @@ def main() -> int:
     run_bench(torch, rows)
 
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
-    require(len(rows) == 7, f"{len(rows)} kernel rows, not 7")
+    require(len(rows) == 8, f"{len(rows)} kernel rows, not 8")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -852,7 +871,115 @@ def check_kernels(torch) -> None:
                   f"same bits at bk 96, 2048, 131072; max abs err {err:.3g} ok")
 
 
+# the DQN bank's products (phase 3): (a, b, bias, relu) shapes as
+# ``repro_torch.core.qlearning`` calls ``bank_mm`` at the DSE's widths (28
+# features, 64 hidden, 26 moves), a minibatch of 32 and a frontier of 6;
+# "aT" / "bT" take a transposed view, "ones" a broadcast row of ones (the
+# row sum of the bias gradients and the loss)
+BANK_MM_CASES = (
+    ("layer 1", (32, 28), (28, 64), True, True, ""),
+    ("hidden", (32, 64), (64, 64), True, True, ""),
+    ("output", (32, 64), (64, 26), True, False, ""),
+    ("select", (6, 64), (64, 26), True, False, ""),
+    ("weight grad", (64, 32), (32, 64), False, False, "aT"),
+    ("input grad", (32, 26), (26, 64), False, False, "bT"),
+    ("row sum", (1, 32), (32, 64), False, False, "ones"),
+)
+BANK_MM_SLOTS = (1, 4, 16)
+
+
+def _bank_mm_inputs(torch, gen, n, a_shape, b_shape, bias, view):
+    """One BANK_MM_CASES case at ``n`` slots: (a, b, bias or None)."""
+    (m, k), (_, p) = a_shape, b_shape
+    r = lambda *sh: _rand(torch, gen, *sh, dtype=torch.float32)  # noqa: E731
+    if view == "aT":
+        a = r(n, k, m).transpose(1, 2)
+    elif view == "ones":
+        a = torch.ones((), device="cuda").expand(n, m, k)
+    else:
+        a = r(n, m, k)
+    b = r(n, p, k).transpose(1, 2) if view == "bT" else r(n, k, p)
+    return a, b, (r(n, p) if bias else None)
+
+
+def check_bank_mm(torch) -> None:
+    """The DQN bank's product against its plain version (``torch.bmm`` /
+    ``baddbmm`` on the card, TF32 off) at the bank's shapes, and its
+    contract: slot i of a 16-slot call has the bits of the same slot in a
+    4-slot and a 1-slot call, and a second run gives the same bits."""
+    from repro_torch.kernels.bank_mm import bank_mm, bank_mm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rtol, atol = TOL["gemm"]["float32"]
+    for name, a_shape, b_shape, bias, relu, view in BANK_MM_CASES:
+        a, b, c = _bank_mm_inputs(torch, gen, max(BANK_MM_SLOTS), a_shape,
+                                  b_shape, bias, view)
+        got = bank_mm(a, b, c, relu)
+        require(torch.equal(got, bank_mm(a, b, c, relu)),
+                f"bank_mm {name}: other bits on a second run")
+        for n in BANK_MM_SLOTS[:-1]:
+            part = bank_mm(a[:n], b[:n], None if c is None else c[:n], relu)
+            require(torch.equal(part, got[:n]),
+                    f"bank_mm {name}: a slot's bits change with the slots "
+                    f"in the call ({n} against {len(got)})")
+        torch.cuda.synchronize()
+        err = _close(torch, got, bank_mm_plain(a, b, c, relu), rtol, atol)
+        print(f"  bank_mm {name:11s} a {tuple(a.shape)} b {tuple(b.shape)}"
+              f"{' ' + view if view else ''}, bias {bias}, relu {relu}: the "
+              f"same bits at {BANK_MM_SLOTS} slots; max abs err {err:.3g} "
+              f"(rtol {rtol}, atol {atol}) ok")
+
+
+def time_bank_mm(torch, launches: int, sig: tuple, rates) -> dict:
+    """The kernels line's bank_mm row, at the main path's commonest call
+    ``sig`` = (a shape, b shape, bias, relu), contiguous inputs."""
+    from repro_torch.kernels.bank_mm import bank_mm, bank_mm_plain
+
+    (n, m, k), (_, _, p), bias, relu = sig
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a, b, c = _bank_mm_inputs(torch, gen, n, (m, k), (k, p), bias, "")
+    bw, peak = rates
+    nbytes = 4 * (a.numel() + b.numel() + n * m * p
+                  + (0 if c is None else c.numel()))
+    flops = 2 * n * m * k * p
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    lib = (lambda: torch.baddbmm(c[:, None], a, b)) if bias else \
+        (lambda: torch.bmm(a, b))
+    row = {
+        "name": "bank_mm", "route": "cuda",
+        "source": KERNEL_META["bank_mm"][0],
+        "replaces": KERNEL_META["bank_mm"][1], "launches": launches,
+        "max_abs_err": _close(torch, bank_mm(a, b, c, relu),
+                              bank_mm_plain(a, b, c, relu),
+                              *TOL["gemm"]["float32"]),
+        "ms": _time_ms(torch, lambda: bank_mm(a, b, c, relu)),
+        "plain_ms": _time_ms(torch, lambda: bank_mm_plain(a, b, c, relu)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # one PyTorch call computes it only without the ReLU
+        "library_ms": None if relu else _time_ms(torch, lib),
+        "library_ms_without_relu": _time_ms(torch, lib),
+        "ms_graph": _time_graph_ms(torch, lambda: bank_mm(a, b, c, relu)),
+        "library_ms_graph": _time_graph_ms(torch, lib),
+        "shape": {"a": [n, m, k], "b": [n, k, p], "bias": bias,
+                  "relu": relu}, "dtype": "float32"}
+    require(math.isfinite(row["ms"]), "a bank_mm timing failed")
+    print(f"  bank_mm a {tuple(a.shape)} b {tuple(b.shape)} bias {bias} relu "
+          f"{relu} (the main path's commonest call): {row['ms']:.4f} ms by "
+          f"events, replayed {row['ms_graph']:.4f} ms; bound "
+          f"{row['bound_ms']:.6f} ms by {row['bound_by']}; plain "
+          f"{row['plain_ms']:.4f} ms; torch.{'baddbmm' if bias else 'bmm'}"
+          f"{' without the ReLU' if relu else ''} "
+          f"{row['library_ms_without_relu']:.4f} ms, replayed "
+          f"{row['library_ms_graph']:.4f} ms; launches {launches}; max abs "
+          f"err {row['max_abs_err']:.3g}")
+    return row
+
+
 def run_main_path(torch):
+    from collections import Counter
+
+    from repro_torch.core import qlearning
     from repro_torch.kernels import INTRINSICS, KERNELS
     from repro_torch.tuner.__main__ import main as tuner_main
     from repro_torch.tuner.db import TuningDB
@@ -870,6 +997,16 @@ def run_main_path(torch):
         return res
 
     measure.measure_one = spy
+    # the DQN bank's products on the main path, by call signature: phase 5
+    # times the commonest
+    bank_calls, bank_mm = Counter(), qlearning.bank_mm
+
+    def bank_spy(a, b, bias=None, relu=False):
+        bank_calls[(tuple(a.shape), tuple(b.shape), bias is not None,
+                    relu)] += 1
+        return bank_mm(a, b, bias, relu)
+
+    qlearning.bank_mm = bank_spy
     for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
@@ -881,11 +1018,18 @@ def run_main_path(torch):
             require(rc == 0, f"tuner exited {rc}")
     finally:
         measure.measure_one = measure_one
-    launches = {k.__name__: k.launches for k in INTRINSICS}
+        qlearning.bank_mm = bank_mm
+    launches = {k.__name__: k.launches for k in (*INTRINSICS, bank_mm)}
     print(f"main path took {time.perf_counter() - t0:.1f} s; launches "
-          f"{launches}")
+          f"{launches} (bank_mm's eager launches and those of each train "
+          f"graph's replays; a capture launches nothing)")
     for name, n in launches.items():
         require(n > 0, f"{name} kernel was not launched by the main path")
+    sig, n = bank_calls.most_common(1)[0]
+    print(f"  bank_mm's commonest call: a {sig[0]} @ b {sig[1]}, bias "
+          f"{sig[2]}, relu {sig[3]}, {n} of {sum(bank_calls.values())} calls "
+          f"through the wrapper in {len(bank_calls)} signatures (a graph's "
+          f"replays make no call)")
 
     db = TuningDB.load(DB_PATH)
     ops_cuda = {r.op for r in db.records.values() if r.backend == "cuda"}
@@ -916,7 +1060,7 @@ def run_main_path(torch):
                  ref.gemm_ref(a, b), *TOL["gemm"]["float32"])
     print(f"tuned ops.matmul 1024^3 with the DB's blocks {blocks}: max abs "
           f"err {err:.3g} ok")
-    return launches, db
+    return launches, db, sig
 
 
 def _print_candidates(torch, measured, db) -> None:
@@ -2445,14 +2589,16 @@ def _zamba_prompts(cfg):
             for _ in range(SERVE["n"])]
 
 
-def _serve_paged(torch, cfg, params, mesh=None, impl="cuda") -> dict:
-    """Phase 17's ample paged run (no trace) on ``params``: the tokens,
-    tokens/s, launches and the collectives' calls and seconds."""
+def _serve_paged(torch, cfg, params, mesh=None, impl="cuda",
+                 n: int = SERVE["n"]) -> dict:
+    """Phase 17's ample paged run (no trace) on ``params``, its first ``n``
+    requests: the tokens, tokens/s, launches and the collectives' calls
+    and seconds."""
     from repro_torch.distributed import local
     from repro_torch.launch.serve import Request, serve_requests
 
     reqs = [Request(i, p, SERVE["max_new"])
-            for i, p in enumerate(_zamba_prompts(cfg))]
+            for i, p in enumerate(_zamba_prompts(cfg)[:n])]
     _read_launches(reset=True)
     local.STATS.clear()
     torch.cuda.synchronize()
@@ -2462,7 +2608,7 @@ def _serve_paged(torch, cfg, params, mesh=None, impl="cuda") -> dict:
         impl=impl, paged=True, mesh=mesh, **PAGED)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    require([r.status for r in done] == ["OK"] * SERVE["n"],
+    require([r.status for r in done] == ["OK"] * n,
             f"statuses {stats['status_counts']}")
     return {"tokens": {r.rid: list(r.out) for r in done},
             "tok_s": stats["generated"] / dt, "seconds": dt,
@@ -2488,13 +2634,17 @@ def phase20_rank() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init_distributed("cuda")
-    res = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    res = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "part_seconds": {}}
     mesh = make_host_mesh(tp=2, device="cuda")
-    res["qwen3"] = _rank_qwen3(torch, mesh)
-    torch.cuda.empty_cache()
-    res["zamba2"] = _rank_zamba2(torch, mesh)
-    torch.cuda.empty_cache()
-    res["train"] = _rank_train(torch, make_host_mesh(tp=1, device="cuda"))
+    for part, run in (("qwen3", lambda: _rank_qwen3(torch, mesh)),
+                      ("zamba2", lambda: _rank_zamba2(torch, mesh)),
+                      ("train", lambda: _rank_train(
+                          torch, make_host_mesh(tp=1, device="cuda")))):
+        t0 = time.perf_counter()
+        res[part] = run()
+        torch.cuda.empty_cache()
+        res["part_seconds"][part] = time.perf_counter() - t0
     dist.destroy_process_group()
     print(json.dumps(res))
     return 0
@@ -2549,26 +2699,34 @@ def _rank_qwen3(torch, mesh) -> dict:
     return out
 
 
+def _tp_zamba_cfg():
+    """zamba2-2.7b, whole, in float32."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("zamba2-2.7b"), dtype="float32")
+
+
 def _rank_zamba2(torch, mesh) -> dict:
     """(b) zamba2-2.7b in float32 on the paged engine at model=2 (40 SSD
-    heads, 16 attention heads a rank), phase 17's requests; rank 0 first
-    serves them on the whole params without a mesh."""
+    heads, 16 attention heads a rank), the first TP_ZAMBA_REQUESTS of phase
+    17's requests; rank 0 first serves them on the whole params without a
+    mesh."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.models import family_module
 
-    cfg = dataclasses.replace(get_config("zamba2-2.7b"), dtype="float32")
+    cfg = _tp_zamba_cfg()
     whole = family_module(cfg).init(cfg, seed=0, tp=2, device="cuda")
     out = {"single": None}
     if dist.get_rank() == 0:
-        single = _serve_paged(torch, cfg, whole)
+        single = _serve_paged(torch, cfg, whole, n=TP_ZAMBA_REQUESTS)
         out["single"] = {k: single[k] for k in ("tokens", "tok_s",
                                                  "launches")}
     dist.barrier()
-    got = _serve_paged(torch, cfg, whole, mesh=mesh)
+    got = _serve_paged(torch, cfg, whole, mesh=mesh, n=TP_ZAMBA_REQUESTS)
     checked = _CheckedOps(torch)
-    again = _serve_paged(torch, cfg, whole, mesh=mesh, impl=checked)
+    again = _serve_paged(torch, cfg, whole, mesh=mesh, impl=checked,
+                         n=TP_ZAMBA_REQUESTS)
     out.update(tokens=got["tokens"], tok_s=got["tok_s"],
                launches=got["launches"], collectives=got["collectives"],
                checked_tokens=again["tokens"] == got["tokens"],
@@ -2706,7 +2864,7 @@ def run_distributed(torch, paged17: dict, fwd_seconds: dict) -> dict:
           f"for both processes, backend {ranks[0]['backend']} (NCCL refuses "
           f"two ranks on one card), which took the CUDA tensors of every "
           f"all-reduce, all-gather and broadcast as they are (no host "
-          f"staging)")
+          f"staging); rank 0's parts {ranks[0]['part_seconds']} s")
     require(all(r["backend"] == "gloo" for r in ranks),
             "two ranks on one card did not run gloo")
     q0 = ranks[0]["qwen3"]
@@ -2740,9 +2898,9 @@ def run_distributed(torch, paged17: dict, fwd_seconds: dict) -> dict:
 
     z0 = ranks[0]["zamba2"]
     single = z0["single"]
-    zcfg = get_config("zamba2-2.7b")
+    zcfg = _tp_zamba_cfg()
     multi = sum(min(PAGED["prefill_chunk"], len(p) - s_) > 1
-                for p in _zamba_prompts(zcfg)
+                for p in _zamba_prompts(zcfg)[:TP_ZAMBA_REQUESTS]
                 for s_ in range(0, len(p), PAGED["prefill_chunk"]))
     want = zcfg.n_layers * multi
     for r, res in enumerate(ranks):
@@ -2756,9 +2914,11 @@ def run_distributed(torch, paged17: dict, fwd_seconds: dict) -> dict:
                 f"rank {r}: {z['launches']['mamba2']} mamba2 launches, "
                 f"{z['checked'][0]} checked, not {want}")
         print(f"  rank {r}: zamba2-2.7b float32 paged at model=2 (40 SSD "
-              f"heads, 16 attention heads): {SERVE['n']} requests x "
-              f"{SERVE['max_new']} tokens, every token the single-device "
-              f"engine's; {z['tok_s']:.2f} tokens/s (single device "
+              f"heads, 16 attention heads): the first {TP_ZAMBA_REQUESTS} of "
+              f"phase 17's {SERVE['n']} requests x {SERVE['max_new']} "
+              f"tokens, every token the single-device engine's on the same "
+              f"requests; "
+              f"{z['tok_s']:.2f} tokens/s (single device "
               f"{single['tok_s']:.2f}); mamba2 {z['launches']['mamba2']} "
               f"launches ({zcfg.n_layers} layers x {multi} chunks), each "
               f"within its float32 tolerance of the plain version in the "
@@ -3480,6 +3640,13 @@ BENCH_LAST = "bench_batched_eval"
 MICRO_ROWS = {"gemm": "gemm", "flash_attention": "flash_attention",
               "rwkv6": "rwkv6", "mamba2_ssd": "mamba2"}
 BENCH_DIR = ROOT / "build" / "phase23"
+# (b)'s bank check: a bank of `seeds` slots, one of the first `part`, the
+# 1-seed banks and standalone DQNs, through `rounds` ragged rounds of
+# frontiers of up to k (bench_sw_dse's k) at the DSE's feature and move
+# counts; each slot's frontier size per round, rotated over the slots (a
+# mean of 4.1 a round: every slot's replay warms and trains)
+BANK = dict(seeds=16, part=4, rounds=12, k=6)
+BANK_RAGGED = (6, 6, 5, 6, 3, 0, 6, 1)
 
 
 def _gate(name: str, ok: bool, reading: str) -> bool:
@@ -3590,6 +3757,20 @@ def _bench_figures(res: dict, by_name: dict, speed: list[bool]) -> None:
     print("(b) the figures, Table III, the DSE and calibration benchmarks at "
           "the reference's settings, the DQNs on the card, in a process of "
           "their own while (c) ran")
+    b = res["bank"]
+    g, e = b["graph_ms"][b["first"] + 1:], b["eager_ms"][b["first"] + 1:]
+    print(f"  the DQN bank first: slot i of a {b['slots']}-seed bank, of a "
+          f"{b['part']}-seed bank (i < {b['part']}), of the 1-seed bank and "
+          f"a standalone DQN equal bit for bit (actions every round; params, "
+          f"target, Adam moments, counts and epsilon at the end) after "
+          f"{b['rounds']} ragged rounds of up to {b['k']} transitions at "
+          f"{b['features']} features and {b['actions']} moves, counts "
+          f"{min(b['t'])}-{max(b['t'])}; the graph-replayed rounds equal "
+          f"the eager ones bit for bit; a warm round's train steps took "
+          f"{min(g):.3f}-{max(g):.3f} ms replayed, {min(e):.3f}-{max(e):.3f} "
+          f"ms eagerly (host clock, the {len(g)} rounds after the first warm "
+          f"one, whose replay took {b['graph_ms'][b['first']]:.3f} ms with "
+          f"its capture); the check took {b['seconds']:.1f} s")
     for name in BENCH_FIGS:
         r_ = res[name]
         for line in r_["out"].strip().splitlines():
@@ -3771,17 +3952,105 @@ def run_bench(torch, rows: list[dict]) -> None:
           f"{time.perf_counter() - t_all:.1f} s")
 
 
+def _bank_leaves(state, i: int) -> list:
+    """Slot ``i``'s params, target, m, v (every leaf) and update count."""
+    return [x[i] for tree in (state.params, state.target, state.m, state.v)
+            for layer in tree for x in layer.values()] + [state.t[i]]
+
+
+def check_bank(torch) -> dict:
+    """(b)'s bank check, on the card before the scripts: slot i of a
+    16-seed bank, of a 4-seed bank and of the 1-seed bank of seed i, and a
+    standalone DQN of seed i, take the same actions and end with the same
+    params, target, Adam moments and counts, bit for bit, after BANK's
+    ragged rounds; a 16-seed bank that runs each round's train steps
+    eagerly ends bit for bit where the one replaying them from a CUDA graph
+    does.  Returns the readings."""
+    import numpy as np
+
+    from repro_torch.bench import bench_sw_dse
+    from repro_torch.core.qlearning import DQN, DQNBank
+    from repro_torch.core.sw_dse import SoftwareSpace
+
+    t_all = time.perf_counter()
+    sp = bench_sw_dse._specs()[0]
+    space = SoftwareSpace(sp.workload, sp.choices, sp.hw, "spatial")
+    F, A, k = space.n_features, len(space.moves), BANK["k"]
+    n, p = BANK["seeds"], BANK["part"]
+    seeds = [17 * i for i in range(n)]
+    bank = lambda ss: DQNBank(F, A, ss, device="cuda")  # noqa: E731
+    big, part, eager = bank(seeds), bank(seeds[:p]), bank(seeds)
+    eager.state.graph = False
+    ones = [bank([s_]) for s_ in seeds]
+    dqns = [DQN(F, A, seed=s_, device="cuda") for s_ in seeds]
+    rng = np.random.default_rng(0)
+    ms = {"graph": [], "eager": []}
+    first = None
+    for rnd in range(BANK["rounds"]):
+        feats = rng.random((n, k, F)).astype(np.float32)
+        counts = [BANK_RAGGED[(i + rnd) % len(BANK_RAGGED)] for i in range(n)]
+        acts = big.select_round(feats, counts=counts)
+        require((eager.select_round(feats, counts=counts) == acts).all()
+                and (part.select_round(feats[:p], counts=counts[:p])
+                     == acts[:p]).all(),
+                f"round {rnd}: the banks' actions differ")
+        s2 = rng.random((n, k, F)).astype(np.float32)
+        rew = rng.uniform(-1, 1, (n, k))
+        for i, (one, d, m) in enumerate(zip(ones, dqns, counts)):
+            require((one.select_round(feats[i:i + 1], counts=[m])
+                     == acts[i:i + 1]).all()
+                    and (m == 0 or (d.select_batch(feats[i, :m])
+                                    == acts[i, :m]).all()),
+                    f"round {rnd}: slot {i}'s actions differ from its 1-seed "
+                    f"bank's or its DQN's")
+            for j in range(m):
+                d.record(feats[i, j], int(acts[i, j]), float(rew[i, j]),
+                         s2[i, j])
+                d.train_step()
+            one.train_round(feats[i:i + 1], acts[i:i + 1], rew[i:i + 1],
+                            s2[i:i + 1], counts=[m])
+        part.train_round(feats[:p], acts[:p], rew[:p], s2[:p],
+                         counts=counts[:p])
+        for name, b in (("graph", big), ("eager", eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.train_round(feats, acts, rew, s2, counts=counts)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        if first is None and big.t.max() > 0:
+            first = rnd                   # the round that captured the graph
+    t = big.t
+    require(t.min() > 0, f"a slot never trained: t {t.tolist()}")
+    for i in range(n):
+        want = _bank_leaves(big.state, i)
+        others = [("the eager bank", eager.state, i),
+                  ("the 1-seed bank", ones[i].state, 0),
+                  ("the standalone DQN", dqns[i].state, 0)]
+        if i < p:
+            others.append((f"the {p}-seed bank", part.state, i))
+        for what, st, j in others:
+            require(all(torch.equal(a, b) for a, b in
+                        zip(want, _bank_leaves(st, j))),
+                    f"slot {i} of the {n}-seed bank differs from {what}")
+        require(big.eps[i] == dqns[i].eps == ones[i].eps[0],
+                f"slot {i}: epsilon differs")
+    return {"slots": n, "part": p, "rounds": BANK["rounds"], "k": k,
+            "features": F, "actions": A, "t": t.tolist(),
+            "graph_ms": ms["graph"], "eager_ms": ms["eager"], "first": first,
+            "seconds": time.perf_counter() - t_all}
+
+
 def phase23_figs() -> int:
-    """Phase 23 (b), a process on the card: each of ``BENCH_FIGS``'s
-    ``main()`` with its output, wall clock, allocations on the card and
-    launches, and bench_sw_dse's metrics; one JSON line."""
+    """Phase 23 (b), a process on the card: the bank check, then each of
+    ``BENCH_FIGS``'s ``main()`` with its output, wall clock, allocations on
+    the card and launches, and bench_sw_dse's metrics; one JSON line."""
     import torch
     require(torch.cuda.is_available(), "no CUDA device for phase 23 (b)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     allocs = lambda: torch.cuda.memory_stats().get(  # noqa: E731
         "allocation.all.allocated", 0)
-    res = {}
+    res = {"bank": check_bank(torch)}
     for name in BENCH_FIGS:
         _read_launches(reset=True)
         a0 = allocs()

@@ -7,28 +7,42 @@ software space."  Written in PyTorch: a 4-layer MLP (He-normal init from a
 selection, TD(0) targets with a slow target network, hand-written Adam.
 The networks live on the caller's ``device``.
 
-Two drivers, one per-slot code path:
+Two drivers share one program (DESIGN.md §10):
 
-  * :class:`DQN`     — one agent, one software space.  Used by the scalar
-    ``engine="reference"`` DSE path.
   * :class:`DQNBank` — N independent agents advanced in lock-step by the
-    batched DSE engine (:meth:`DQNBank.select_round`,
-    :meth:`DQNBank.train_round`).
+    batched DSE engine: parameters are stacked along a leading search axis,
+    action selection is one batched forward over every search's frontier
+    (:func:`_bank_forward`), and a round's train steps, padded to k steps,
+    run as one call of :func:`_bank_train_steps` over all N searches.  On a
+    card that call is one CUDA graph replay, captured once per bank and
+    round shape; on the CPU it runs eagerly.
+  * :class:`DQN`     — one agent, one software space, used by the scalar
+    ``engine="reference"`` DSE path: the N=1 instance of the bank's forward
+    and the N=1, m=1 instance of its train steps.
 
-Both hold their agents as :class:`_Slot` objects and run every forward and
-every train step through the same functions on the same shapes, so a bank
-slot is bit-identical to a standalone ``DQN`` by construction (a batched
-product over N slots is not guaranteed the bits of N=1).
+Each slot replicates the exact update cadence and RNG stream of a standalone
+:class:`DQN`, and every product and row sum of the program goes through
+:func:`repro_torch.kernels.bank_mm` (the hand-written kernel on the card,
+full float32 FMA; ``torch.bmm`` on the CPU), whose result for one slot does
+not depend on how many slots share the call (on the card, PyTorch's batched
+products and sums give no such promise).  So a bank slot is bit-identical
+to a standalone ``DQN``: the tests hold this on the CPU, ``chip_smoke.py``
+on the card.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
+from repro_torch.kernels.bank_mm import bank_mm
+
 LR, BETA1, BETA2, ADAM_EPS = 1e-3, 0.9, 0.999, 1e-8
 TARGET_SYNC = 25   # updates between target-network syncs
+POW_ROW = 64       # see _pow
 
 
 def resolve_device(device) -> torch.device:
@@ -66,73 +80,247 @@ def params_from_numpy(params, device="cpu") -> list[dict[str, torch.Tensor]]:
              for k in ("w", "b")} for layer in params]
 
 
-def _forward(params, x: torch.Tensor) -> torch.Tensor:
+def _bank_forward(params, x: torch.Tensor) -> torch.Tensor:
+    """Every slot's MLP on its own rows: x (N, k, F) -> (N, k, A), one
+    ``bank_mm`` a layer."""
     h = x
     for layer in params[:-1]:
-        h = torch.relu(h @ layer["w"] + layer["b"])
+        h = bank_mm(h, layer["w"], layer["b"], relu=True)
     last = params[-1]
-    return h @ last["w"] + last["b"]
+    return bank_mm(h, last["w"], last["b"])
 
 
-def _clone(params):
-    return [{k: v.clone() for k, v in layer.items()} for layer in params]
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum_i x[n, i, j] -> (N, P), as ``bank_mm`` of a row of ones (a
+    broadcast: no copy), so it too keeps a slot's bits whatever N."""
+    ones = x.new_ones(()).expand(x.shape[0], 1, x.shape[1])
+    return bank_mm(ones, x)[:, 0]
 
 
-class _Slot:
-    """One agent's network state: online and target parameters, Adam
-    moments and update count."""
+def _pow(base: float, tf: torch.Tensor) -> torch.Tensor:
+    """``base ** tf`` in float32 for tf (N,).  Each slot's power is read
+    from a row of POW_ROW copies: PyTorch's CPU ``pow`` rounds its
+    vectorised body and its scalar tail differently, and a row that long
+    puts every element in the body whatever N is, so a slot's bias
+    correction does not depend on N."""
+    return torch.pow(base, tf[:, None].expand(-1, POW_ROW).contiguous())[:, 0]
 
-    def __init__(self, params):
-        self.params = params
-        self.target = _clone(params)
-        self.m = [{k: torch.zeros_like(v) for k, v in l.items()}
-                  for l in params]
-        self.v = [{k: torch.zeros_like(v) for k, v in l.items()}
-                  for l in params]
-        self.t = 0
 
-    def q_values(self, feats: np.ndarray) -> np.ndarray:
-        """Q-values for a state batch (B, F) -> (B, A)."""
-        dev = self.params[0]["w"].device
+def _bank_step(gamma, carry, inp) -> torch.Tensor:
+    """One TD(0) train step of every slot at once, in place on ``carry``
+    (params, target, m, v, t); returns the pre-update losses (N,).
+
+    The loss and its gradients come from one forward and a hand-written
+    backward of the 4-layer MLP (products for the weights' and inputs'
+    gradients, a row sum for the biases', the ReLU masks), every product
+    and sum a ``bank_mm``, then Adam with float32 bias corrections from the
+    stepped ``t``, then the slow target sync every TARGET_SYNC updates.
+    ``do_train`` (N,) masks the whole update (padding of ragged rounds).
+    Device tensors only: no value is read back, so the step can be
+    captured in a CUDA graph."""
+    params, target, m, v, t = carry
+    s, a, r, s2, done, do_train = inp
+
+    hs = [s]
+    for layer in params[:-1]:
+        hs.append(bank_mm(hs[-1], layer["w"], layer["b"], relu=True))
+    q = bank_mm(hs[-1], params[-1]["w"], params[-1]["b"])
+    q_sa = q.gather(2, a[..., None])[..., 0]
+    q_next = _bank_forward(target, s2).amax(dim=2)
+    diff = q_sa - (r + gamma * q_next * (1.0 - done))
+    batch = s.shape[1]
+    loss = _row_sum((diff * diff)[..., None])[:, 0] / batch
+
+    # d loss / d q: 2 (q_sa - target) / batch at the taken action
+    g = torch.zeros_like(q).scatter_(2, a[..., None],
+                                     (2.0 / batch * diff)[..., None])
+    grads = [None] * len(params)
+    for li in reversed(range(len(params))):
+        grads[li] = {"w": bank_mm(hs[li].transpose(1, 2), g),
+                     "b": _row_sum(g)}
+        if li:          # through the ReLU: h > 0 exactly where z > 0
+            g = bank_mm(g, params[li]["w"].transpose(1, 2))
+            g = torch.where(hs[li] > 0, g, 0.0)
+
+    t2 = t + do_train.to(torch.int32)
+    tf = t2.to(torch.float32)
+    bc1, bc2 = 1 - _pow(BETA1, tf), 1 - _pow(BETA2, tf)
+    sync = do_train & (t2 % TARGET_SYNC == 0)
+    for lp, lg, lm, lv, lt in zip(params, grads, m, v, target):
+        for k in ("w", "b"):
+            view = (-1,) + (1,) * (lp[k].dim() - 1)
+            gk = lg[k]
+            m2 = BETA1 * lm[k] + (1 - BETA1) * gk
+            v2 = BETA2 * lv[k] + (1 - BETA2) * gk * gk
+            mh, vh = m2 / bc1.view(view), v2 / bc2.view(view)
+            p2 = lp[k] - LR * mh / (torch.sqrt(vh) + ADAM_EPS)
+            keep = do_train.view(view)
+            lp[k].copy_(torch.where(keep, p2, lp[k]))
+            lm[k].copy_(torch.where(keep, m2, lm[k]))
+            lv[k].copy_(torch.where(keep, v2, lv[k]))
+            lt[k].copy_(torch.where(sync.view(view), lp[k], lt[k]))
+    t.copy_(t2)
+    return loss
+
+
+def _bank_train_steps(params, target, m, v, t, S, A, R, S2, D, DT,
+                      gamma) -> torch.Tensor:
+    """A whole round's training work: each slot's (up to) m sequential
+    train steps, all N slots at once, in place on (params, target, m, v,
+    t).  S, S2 (N, m, batch, F); A (N, m, batch) int64; R, D (N, m,
+    batch); DT (N, m) bool.  Returns the per-step losses (N, m)."""
+    carry = (params, target, m, v, t)
+    with torch.no_grad():
+        losses = [_bank_step(gamma, carry, (S[:, i], A[:, i], R[:, i],
+                                            S2[:, i], D[:, i], DT[:, i]))
+                  for i in range(S.shape[1])]
+    return torch.stack(losses, dim=1)
+
+
+def _pack(batches: list[list[tuple]], m: int, batch: int,
+          n_feat: int) -> np.ndarray:
+    """Every search's drawn minibatches, each a (s, a, r, s2, done) tuple
+    in draw order, as one float32 array (N, m, batch, 2F + 4), the round's
+    one upload: per row s, s2, a, r, done and do_train; steps past a
+    search's draws stay zero (do_train false)."""
+    F = n_feat
+    out = np.zeros((len(batches), m, batch, 2 * F + 4), np.float32)
+    for si, drawn in enumerate(batches):
+        for step, (s, a, r, s2, d) in enumerate(drawn):
+            rows = out[si, step]
+            rows[:, :F], rows[:, F:2 * F] = s, s2
+            rows[:, 2 * F], rows[:, 2 * F + 1], rows[:, 2 * F + 2] = a, r, d
+            rows[:, 2 * F + 3] = 1.0
+    return out
+
+
+def _unpack(P: torch.Tensor, n_feat: int) -> tuple:
+    """``_pack``'s array on the device as _bank_train_steps' S, A, R, S2,
+    D, DT."""
+    F = n_feat
+    return (P[..., :F], P[..., 2 * F].long(), P[..., 2 * F + 1],
+            P[..., F:2 * F], P[..., 2 * F + 2], P[:, :, 0, 2 * F + 3] > 0)
+
+
+class _State:
+    """N agents' network state as stacked float32 leaves with a leading
+    slot axis (the reference's bank layout): online and target parameters,
+    Adam's ``m`` and ``v`` (all views of one buffer ``flat``, so the whole
+    state copies in one call) and the update counts ``t`` (N,) int32, on
+    one device and updated in place.  ``shapes`` holds each layer's (w, b)
+    shapes; a new state is all zeros."""
+
+    def __init__(self, shapes, gamma: float, device):
+        self.shapes = tuple((tuple(w), tuple(b)) for w, b in shapes)
+        self.device = torch.device(device)
+        sizes = [math.prod(x) for layer in self.shapes for x in layer]
+        self.flat = torch.zeros(4, sum(sizes), device=self.device)
+        self.params, self.target, self.m, self.v = (
+            self._views(self.flat[i]) for i in range(4))
+        self.t = torch.zeros(self.shapes[0][0][0], dtype=torch.int32,
+                             device=self.device)
+        self.gamma = gamma
+        self.n_feat = self.shapes[0][0][1]
+        self.graph = self.device.type == "cuda"
+
+    def _views(self, row: torch.Tensor) -> list[dict[str, torch.Tensor]]:
+        out, off = [], 0
+        for layer in self.shapes:
+            views = {}
+            for key, shape in zip(("w", "b"), layer):
+                views[key] = row[off:off + math.prod(shape)].view(shape)
+                off += math.prod(shape)
+            out.append(views)
+        return out
+
+    @classmethod
+    def of(cls, params, gamma: float) -> "_State":
+        """A fresh state holding ``params`` (online and target)."""
+        state = cls([(layer["w"].shape, layer["b"].shape)
+                     for layer in params], gamma, params[0]["w"].device)
+        for tree in (state.params, state.target):
+            for dst, src in zip(tree, params):
+                for key in ("w", "b"):
+                    dst[key].copy_(src[key])
+        return state
+
+    def carry(self) -> tuple:
+        return self.params, self.target, self.m, self.v, self.t
+
+    def forward(self, feats: np.ndarray) -> np.ndarray:
+        """Q-values (N, k, A) for states (N, k, F): one upload, one
+        forward, one read-back."""
         with torch.no_grad():
-            x = torch.as_tensor(np.asarray(feats, np.float32), device=dev)
-            return _forward(self.params, x).cpu().numpy()
+            x = torch.as_tensor(np.asarray(feats, np.float32),
+                                device=self.device)
+            return _bank_forward(self.params, x).cpu().numpy()
 
-    def train_step(self, s, a, r, s2, done, gamma: float) -> torch.Tensor:
-        """One TD(0) update from a pre-drawn minibatch: loss and gradients
-        from one pass, Adam, target sync every TARGET_SYNC updates.
-        Returns the pre-update loss as a 0-d tensor on the slot's device
-        (reading it is the caller's choice: on a card it waits for the
-        device)."""
-        dev = self.params[0]["w"].device
-        s, r, s2, done = (torch.as_tensor(x, dtype=torch.float32, device=dev)
-                          for x in (s, r, s2, done))
-        a = torch.as_tensor(a, dtype=torch.int64, device=dev)
-        leaves = [v.requires_grad_() for l in self.params for v in l.values()]
-        q_sa = _forward(self.params, s).gather(1, a[:, None])[:, 0]
-        with torch.no_grad():
-            q_next = _forward(self.target, s2).max(dim=1).values
-            target = r + gamma * q_next * (1.0 - done)
-        loss = ((q_sa - target) ** 2).mean()
-        grads = torch.autograd.grad(loss, leaves)
-        self.t += 1
-        # bias corrections in float32, as the reference computes them
-        tf = torch.tensor(float(self.t), dtype=torch.float32)
-        bc1 = float(1 - torch.tensor(BETA1, dtype=torch.float32) ** tf)
-        bc2 = float(1 - torch.tensor(BETA2, dtype=torch.float32) ** tf)
-        with torch.no_grad():
-            gi = iter(grads)
-            for lp, lm, lv in zip(self.params, self.m, self.v):
-                for k in lp:
-                    g = next(gi)
-                    lm[k] = BETA1 * lm[k] + (1 - BETA1) * g
-                    lv[k] = BETA2 * lv[k] + (1 - BETA2) * g * g
-                    mh, vh = lm[k] / bc1, lv[k] / bc2
-                    lp[k] = lp[k].detach() - LR * mh / (torch.sqrt(vh)
-                                                        + ADAM_EPS)
-            if self.t % TARGET_SYNC == 0:
-                self.target = _clone(self.params)
-        return loss.detach()
+    def train(self, packed: np.ndarray) -> torch.Tensor:
+        """``_pack``'s round through _bank_train_steps: one CUDA graph
+        replay where ``graph`` (the card's default), else eagerly.  Returns
+        the losses (N, m) on the device, unread."""
+        host = torch.from_numpy(packed)
+        if not self.graph:
+            return _bank_train_steps(*self.carry(),
+                                     *_unpack(host.to(self.device),
+                                              self.n_feat), self.gamma)
+        key = (self.device, packed.shape, self.shapes, self.gamma)
+        g = _GRAPHS.get(key)
+        if g is None:
+            g = _GRAPHS[key] = self._capture(packed.shape)
+        g.state.flat.copy_(self.flat)
+        g.state.t.copy_(self.t)
+        g.inp.copy_(host)                     # the round's one upload
+        g.graph.replay()
+        kernels.bank_mm.launches += g.launches
+        self.flat.copy_(g.state.flat)
+        self.t.copy_(g.state.t)
+        return g.losses.clone()
+
+    def _capture(self, shape: tuple) -> "_Graph":
+        """A CUDA graph of _bank_train_steps on a static state of this
+        state's shapes and a static input of ``shape``, after one eager
+        run on a side stream that loads every kernel first.  A capture
+        launches nothing: the ``bank_mm`` calls it records are taken off
+        the kernel's count and added back at each replay."""
+        state = _State(self.shapes, self.gamma, self.device)
+        inp = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        steps = lambda: _bank_train_steps(  # noqa: E731
+            *state.carry(), *_unpack(inp, self.n_feat), self.gamma)
+        with torch.cuda.device(self.device):
+            main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                steps()
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = kernels.bank_mm.launches
+            with torch.cuda.graph(graph):
+                losses = steps()
+            held = kernels.bank_mm.launches - before
+            kernels.bank_mm.launches = before
+        return _Graph(state, inp, graph, losses, held)
+
+
+@dataclass
+class _Graph:
+    """One captured round: the static state and input it reads and
+    writes, its losses (N, m) and the ``bank_mm`` launches a replay
+    makes."""
+
+    state: _State
+    inp: torch.Tensor
+    graph: torch.cuda.CUDAGraph
+    losses: torch.Tensor
+    launches: int
+
+
+# The captured rounds by (device, round shape, leaf shapes, gamma): every
+# bank and standalone DQN of one configuration replays one capture, copying
+# its state in and out (the reference's one jit compile per engine
+# configuration).  A process's banks take turns on it: not for use from
+# several threads at once.
+_GRAPHS: dict[tuple, _Graph] = {}
 
 
 @dataclass
@@ -146,14 +334,16 @@ class Replay:
     n: int = 0
     ptr: int = 0
 
+    def _alloc(self, d: int) -> None:
+        self.s = np.zeros((self.capacity, d), np.float32)
+        self.s2 = np.zeros((self.capacity, d), np.float32)
+        self.a = np.zeros(self.capacity, np.int32)
+        self.r = np.zeros(self.capacity, np.float32)
+        self.done = np.zeros(self.capacity, np.float32)
+
     def add(self, s, a, r, s2, done):
         if self.s is None:
-            d = len(s)
-            self.s = np.zeros((self.capacity, d), np.float32)
-            self.s2 = np.zeros((self.capacity, d), np.float32)
-            self.a = np.zeros(self.capacity, np.int32)
-            self.r = np.zeros(self.capacity, np.float32)
-            self.done = np.zeros(self.capacity, np.float32)
+            self._alloc(len(s))
         i = self.ptr
         self.s[i], self.a[i], self.r[i], self.s2[i], self.done[i] = \
             s, a, r, s2, float(done)
@@ -166,20 +356,17 @@ class Replay:
                 self.done[idx])
 
 
-def _unstack(stacked, i: int):
-    return [{k: v[i].clone() for k, v in layer.items()} for layer in stacked]
-
-
 class DQN:
-    """4-layer MLP Q-network with target network and replay."""
+    """4-layer MLP Q-network with target network and replay: the 1-slot
+    bank."""
 
     def __init__(self, n_features: int, n_actions: int, hidden: int = 64,
                  gamma: float = 0.9, seed: int = 0, buffer: int = 4096,
                  device="cuda"):
         sizes = (n_features, hidden, hidden, hidden, n_actions)
         # a 1-slot bank's init: the same weights DQNBank gives this seed
-        self.slot = _Slot(_unstack(
-            _init_bank([seed], sizes, resolve_device(device)), 0))
+        self.state = _State.of(_init_bank([seed], sizes,
+                                          resolve_device(device)), gamma)
         self.gamma = gamma
         self.n_actions = n_actions
         self.replay = Replay(buffer)
@@ -190,18 +377,22 @@ class DQN:
 
     @property
     def params(self):
-        return self.slot.params
+        """The parameters without the slot axis (views of the 1-slot
+        state)."""
+        return [{k: x[0] for k, x in l.items()} for l in self.state.params]
 
     @property
     def t(self) -> int:
-        return self.slot.t
+        return int(self.state.t[0])
 
     def q_values(self, feat: np.ndarray) -> np.ndarray:
-        return self.slot.q_values(np.asarray(feat)[None, :])[0]
+        return self.q_values_batch(np.asarray(feat)[None, :])[0]
 
     def q_values_batch(self, feats: np.ndarray) -> np.ndarray:
-        """Q-values for a whole state batch, one network forward: (B, A)."""
-        return self.slot.q_values(feats)
+        """Q-values for a whole state batch, one network forward: (B, A).
+        The 1-slot bank's forward, so both engines see the same
+        Q-values."""
+        return self.state.forward(np.asarray(feats, np.float32)[None])[0]
 
     def select(self, feat: np.ndarray) -> int:
         """Epsilon-greedy revision choice (the paper applies the highest-Q
@@ -226,13 +417,16 @@ class DQN:
 
     def train_step(self, batch: int = 32):
         """One TD(0) update; returns the minibatch loss (pre-update), or
-        None while the replay holds fewer than ``batch`` transitions."""
+        None while the replay holds fewer than ``batch`` transitions.  The
+        N=1, m=1 instance of the round ``DQNBank`` runs, so reference and
+        lock-step weight trajectories are bit-identical."""
         if self.replay.n < batch:
             return None
-        loss = self.slot.train_step(*self.replay.sample(self.rng, batch),
-                                    self.gamma)
+        drawn = self.replay.sample(self.rng, batch)
+        packed = _pack([[drawn]], 1, batch, self.state.n_feat)
+        loss = self.state.train(packed)
         self.eps = max(self.eps_min, self.eps * self.eps_decay)
-        return float(loss)
+        return float(loss[0, 0])
 
 
 class DQNBank:
@@ -240,17 +434,21 @@ class DQNBank:
 
     Each slot replicates a standalone ``DQN(n_features, n_actions, seed=s)``
     bit-for-bit: same init, same numpy action/sample RNG stream, same
-    epsilon schedule, same Adam/target cadence, and the same per-slot
-    forward and train step on the same shapes.
+    epsilon schedule, same Adam/target cadence.  What changes is the
+    execution shape: parameters are stacked along a leading search axis so
+    one batched forward scores every search's frontier
+    (:meth:`select_round`) and one call of the stacked train steps applies
+    every search's round of replay inserts + train steps
+    (:meth:`train_round`).
     """
 
     def __init__(self, n_features: int, n_actions: int, seeds: list[int],
                  hidden: int = 64, gamma: float = 0.9, buffer: int = 4096,
                  batch: int = 32, device="cuda"):
         sizes = (n_features, hidden, hidden, hidden, n_actions)
-        stacked = _init_bank(seeds, sizes, resolve_device(device))
+        self.state = _State.of(_init_bank(seeds, sizes,
+                                          resolve_device(device)), gamma)
         N = len(seeds)
-        self.slots = [_Slot(_unstack(stacked, i)) for i in range(N)]
         self.n_searches = N
         self.n_actions = n_actions
         self.gamma = gamma
@@ -265,55 +463,68 @@ class DQNBank:
     def params(self):
         """Every slot's parameters stacked along a leading slot axis (the
         layout of the reference's bank)."""
-        return [{k: torch.stack([s.params[li][k] for s in self.slots])
-                 for k in ("w", "b")}
-                for li in range(len(self.slots[0].params))]
+        return self.state.params
 
     @property
     def t(self) -> np.ndarray:
-        return np.array([s.t for s in self.slots], np.int32)
+        return self.state.t.cpu().numpy()
+
+    def q_values_round(self, feats: np.ndarray) -> np.ndarray:
+        """Q-values for every search's frontier, one batched forward:
+        feats (N, k, F) -> (N, k, A)."""
+        return self.state.forward(feats)
 
     def select_round(self, feats: np.ndarray,
                      counts: list[int] | None = None) -> np.ndarray:
-        """Epsilon-greedy actions for all N frontiers (int (N, k)); per-search
-        exploration noise drawn from that search's own RNG in the same order
-        a standalone ``DQN.select_batch`` would.
+        """Epsilon-greedy actions for all N frontiers in one network pass;
+        per-search exploration noise drawn from that search's own RNG in the
+        same order a standalone ``DQN.select_batch`` would (int (N, k)).
 
         ``counts`` marks how many leading rows of each search's frontier are
         real (ragged feasible-only frontiers arrive zero-padded to k): only
-        those are scored and consume RNG draws, exactly as the reference
-        twin's ``select_batch`` on m states; the padded tail comes back
+        those consume RNG draws, exactly as the reference twin's
+        ``select_batch`` on m states, and the padded tail comes back
         zeroed."""
-        feats = np.asarray(feats, np.float32)
-        N, k = feats.shape[:2]
+        greedy = np.argmax(self.q_values_round(feats), axis=2)
+        N, k = greedy.shape
         acts = np.zeros((N, k), dtype=int)
         for s in range(N):
             m = k if counts is None else counts[s]
             if not m:
                 continue
-            greedy = np.argmax(self.slots[s].q_values(feats[s, :m]), axis=1)
             explore = self.rngs[s].random(m) < self.eps[s]
             random_a = self.rngs[s].integers(self.n_actions, size=m)
-            acts[s, :m] = np.where(explore, random_a, greedy)
+            acts[s, :m] = np.where(explore, random_a, greedy[s, :m])
         return acts
 
     def train_round(self, s: np.ndarray, a: np.ndarray, r: np.ndarray,
                     s2: np.ndarray, done: np.ndarray | None = None,
                     counts: list[int] | None = None) -> None:
         """Record + learn a whole round of transitions: (N, k, F) states,
-        (N, k) actions/rewards.  Per search, each real transition is
-        recorded and, once the replay is warm, followed by one train step
-        on a freshly drawn minibatch — the reference per-transition loop.
-        ``counts`` bounds how many leading transitions per search are real."""
+        (N, k) actions/rewards.  Replay inserts and minibatch draws run
+        host-side per search (identical ``Replay`` semantics and RNG stream
+        to the reference per-transition loop); every search's sequential
+        train steps then run as ONE call of the stacked train steps (one
+        CUDA graph replay on a card).  Rounds where no replay is warm
+        enough launch nothing at all.  ``counts`` bounds how many leading
+        transitions per search are real (ragged feasible-only frontiers
+        zero-pad to k); only those are recorded."""
         N, k = a.shape
         if done is None:
             done = np.zeros((N, k), np.float32)
+        batches: list[list[tuple]] = [[] for _ in range(N)]
         for si in range(N):
-            rep, rng, slot = self.replays[si], self.rngs[si], self.slots[si]
+            rep, rng = self.replays[si], self.rngs[si]
             for j in range(k if counts is None else counts[si]):
                 rep.add(np.asarray(s[si, j], np.float32), a[si, j], r[si, j],
                         np.asarray(s2[si, j], np.float32), done[si, j])
                 if rep.n >= self.batch:
-                    slot.train_step(*rep.sample(rng, self.batch), self.gamma)
+                    batches[si].append(rep.sample(rng, self.batch))
                     self.eps[si] = max(self.eps_min,
                                        self.eps[si] * self.eps_decay)
+        if all(len(b) == 0 for b in batches):
+            return
+        # pad the step axis to k (the per-round maximum) so one graph serves
+        # the warm-up round and steady state alike: one capture per round
+        # shape instead of one per replay fill level
+        self.state.train(_pack(batches, k, self.batch, s.shape[-1]))

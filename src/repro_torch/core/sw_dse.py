@@ -18,9 +18,11 @@ Two engines share these semantics (DESIGN.md §10):
     and one cost-model pass per distinct workload scores the union of every
     search's revision frontier and refill.
 
-Each lock-step search keeps its own RNG streams and its own DQN slot (the
-paper reuses a DQN within one software space, i.e. per (workload, hw) pair),
-so the batched engine reproduces the reference results bit-for-bit
+Each lock-step search keeps its own RNG streams and its own slot of the
+DQN bank (the paper reuses a DQN within one software space, i.e. per
+(workload, hw) pair).  The bank runs one program for all its slots, of
+which the reference engine's standalone DQN is the N=1 instance, so the
+batched engine reproduces the reference results bit-for-bit
 (``tests/test_torch_qlearning.py`` asserts it).  The DQNs run on the
 caller's ``device``.  An optional
 :class:`~repro_torch.core.cost_model.EvalCache` makes
@@ -286,10 +288,10 @@ def _run_batched_body(specs: list[SearchSpec], *, target: str,
         with obs.span("sw_dse.round"):
             # frontiers are feasible-only (top_k filters non-finite latencies),
             # so they may be ragged: search si revises m_si <= k candidates.
-            # The stacked arrays stay (N, k, ...) — zero-padded rows feed the
-            # network forward (no RNG) and are masked out of replay/training —
-            # while every per-search RNG draw is sized m_si, exactly matching
-            # the reference engine's stream.
+            # The stacked arrays stay (N, k, ...): zero-padded rows feed the
+            # bank's one forward over every slot (no RNG) and are masked out
+            # of replay/training, while every per-search RNG draw is sized
+            # m_si, exactly matching the reference engine's stream.
             chosen = [top_k(pools[si], lats[si], k) for si in range(N)]
             counts = [len(c) for c in chosen]
             feats = np.zeros((N, k, n_feat), np.float32)
@@ -297,7 +299,7 @@ def _run_batched_body(specs: list[SearchSpec], *, target: str,
                 for j, i in enumerate(chosen[si]):
                     feats[si, j] = feat_of(si, pools[si][i])
             if use_qlearning:
-                acts = bank.select_round(feats, counts=counts)
+                acts = bank.select_round(feats, counts=counts)  # one forward
             else:
                 acts = np.zeros((N, k), int)
                 for si in range(N):
@@ -329,7 +331,7 @@ def _run_batched_body(specs: list[SearchSpec], *, target: str,
                         rewards[si, j] = _reward(lats[si][i], new_lats[si][j])
                 with obs.span("sw_dse.train_round"):
                     bank.train_round(feats, acts, rewards, next_feats,
-                                     counts=counts)
+                                     counts=counts)    # one graph replay
 
             for si in range(N):
                 pools[si] += revised[si]

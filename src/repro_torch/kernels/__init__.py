@@ -13,6 +13,9 @@ WKV6 and SSD recurrences, each with a plain PyTorch version and dispatch in
   rwkv6 / mamba2                 — ``csrc/rwkv6.cu``, ``csrc/mamba2.cu``;
                                    their plain versions are in
                                    ``xla_linear``
+  bank_mm                        — ``csrc/bank_mm.cu``: the DQN bank's
+                                   per-slot product (port-only: a slot's
+                                   bits must not depend on the bank's size)
   plain                          — the plain versions on any device, the
                                    ops of a model run with ``impl=plain``
 
@@ -20,6 +23,7 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from . import ops, plain, ref
+from .bank_mm import bank_mm
 from .conv2d import conv2d
 from .dotprod import dot
 from .flash_attention import flash_attention
@@ -29,7 +33,8 @@ from .mamba2 import mamba2
 from .rwkv6 import rwkv6
 
 INTRINSICS = (gemm, gemv, dot, conv2d)
-KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2)
+KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2, bank_mm)
 
-__all__ = ["INTRINSICS", "KERNELS", "conv2d", "dot", "flash_attention",
-           "gemm", "gemv", "mamba2", "ops", "plain", "ref", "rwkv6"]
+__all__ = ["INTRINSICS", "KERNELS", "bank_mm", "conv2d", "dot",
+           "flash_attention", "gemm", "gemv", "mamba2", "ops", "plain", "ref",
+           "rwkv6"]

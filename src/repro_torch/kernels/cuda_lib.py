@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu",
-           "flash_attention.cu", "rwkv6.cu", "mamba2.cu")
+           "flash_attention.cu", "rwkv6.cu", "mamba2.cu", "bank_mm.cu")
 HEADERS = ("common.cuh", "tile_mm.cuh", "state_pass.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,6 +51,8 @@ SIGNATURES = {
                     _I, _LLP, _I, _I, _P],
     "hasco_mamba2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _LLP, _I, _I, _I, _P],
+    "hasco_bank_mm": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
+                      _LL, _LL, _I, _P],
 }
 
 

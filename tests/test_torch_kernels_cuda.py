@@ -34,6 +34,7 @@ from repro_torch.kernels import (conv2d, dot, flash_attention, gemm, gemv,
                                  mamba2, ops, ref, rwkv6, xla_attention,
                                  xla_linear)
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.bank_mm import bank_mm, bank_mm_plain
 from repro_torch.kernels.conv2d import plan as conv_plan
 from repro_torch.kernels.flash_attention import route
 from repro_torch.kernels.gemm import plan as gemm_plan
@@ -640,3 +641,81 @@ def test_rwkv6_kernel_matches_plain_over_spans_and_column_blocks(cuda, dtype,
                                                                  case):
     ins = _rwkv6_inputs(cuda, *case, DTYPES[dtype])
     _check_recurrence(rwkv6, xla_linear.rwkv6, ins, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (M, K, P, bias, relu, view): the DQN bank's calls at the DSE's widths
+    (32, 28, 64, True, True, ""), (32, 64, 26, True, False, ""),
+    (64, 32, 64, False, False, "aT"), (32, 26, 64, False, False, "bT"),
+    (1, 32, 64, False, False, "ones"), (6, 64, 26, True, False, ""),
+])
+def test_bank_mm_matches_plain_and_keeps_a_slots_bits(cuda, case):
+    """The bank's product against ``torch.bmm`` / ``baddbmm`` at float32's
+    rtol 1e-5 / atol 1e-4, and its contract: a slot's bits are the same in
+    a 16-slot, a 4-slot and a 1-slot call, and replayed from a graph."""
+    m, k, p, bias, relu, view = case
+    n = 16
+    a = (_on(cuda, n, k, m).transpose(1, 2) if view == "aT" else
+         torch.ones((), device=cuda).expand(n, m, k) if view == "ones" else
+         _on(cuda, n, m, k))
+    b = _on(cuda, n, p, k).transpose(1, 2) if view == "bT" else \
+        _on(cuda, n, k, p)
+    c = _on(cuda, n, p) if bias else None
+    got = bank_mm(a, b, c, relu)
+    torch.testing.assert_close(got, bank_mm_plain(a, b, c, relu), rtol=1e-5,
+                               atol=1e-4)
+    for s in (1, 4):
+        assert torch.equal(bank_mm(a[:s], b[:s], None if c is None else c[:s],
+                                   relu), got[:s])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bank_mm(a, b, c, relu)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+def test_dqn_bank_slot_equals_standalone_dqn_on_the_card(cuda):
+    """A slot of a 16-seed bank, the 1-seed bank of its seed and a
+    standalone DQN end on the same bits; the bank's graph-replayed rounds
+    equal eager ones, and count the ``bank_mm`` launches they replay."""
+    from repro_torch.core.qlearning import DQN, DQNBank
+
+    F, A, k, seeds = 28, 26, 6, list(range(16))
+    bank, eager = (DQNBank(F, A, seeds, device=cuda) for _ in range(2))
+    eager.state.graph = False
+    one, dqn = DQNBank(F, A, [5], device=cuda), DQN(F, A, seed=5, device=cuda)
+    rng = np.random.default_rng(0)
+    launched = {"graph": [], "eager": []}
+    for _ in range(10):
+        feats = rng.random((16, k, F)).astype(np.float32)
+        acts = bank.select_round(feats)
+        assert (eager.select_round(feats) == acts).all()
+        assert (one.select_round(feats[5:6]) == acts[5:6]).all()
+        assert (dqn.select_batch(feats[5]) == acts[5]).all()
+        s2 = rng.random((16, k, F)).astype(np.float32)
+        rew = rng.uniform(-1, 1, (16, k))
+        for name, b_ in (("graph", bank), ("eager", eager)):
+            before = bank_mm.launches
+            b_.train_round(feats, acts, rew, s2)
+            launched[name].append(bank_mm.launches - before)
+        one.train_round(feats[5:6], acts[5:6], rew[5:6], s2[5:6])
+        for j in range(k):
+            dqn.record(feats[5, j], int(acts[5, j]), float(rew[5, j]),
+                       s2[5, j])
+            dqn.train_step()
+    assert dqn.t > 0
+    # after the first warm round (which may capture the graph), a replayed
+    # round counts the launches the eager round makes
+    first = next(i for i, n in enumerate(launched["eager"]) if n)
+    assert launched["graph"][first + 1:] == launched["eager"][first + 1:]
+    assert min(launched["eager"][first:]) > 0
+    for st in (eager.state, one.state, dqn.state):
+        i = 5 if st is eager.state else 0
+        for tree, want in ((st.params, bank.state.params),
+                           (st.m, bank.state.m), (st.v, bank.state.v)):
+            for layer, wl in zip(tree, want):
+                for key in ("w", "b"):
+                    assert torch.equal(layer[key][i], wl[key][5])

@@ -115,6 +115,30 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
         gemm(a, a.T, bm=0)                        # blocks must be positive
 
 
+def test_bank_mm_takes_its_plain_version_on_the_cpu_and_checks_inputs():
+    """The DQN bank's product on CPU tensors: its plain version (with the
+    bias and ReLU), the bias and ReLU as ``baddbmm`` and ``relu`` give them,
+    no launch; malformed operands raise."""
+    from repro_torch.kernels import bank_mm
+    from repro_torch.kernels.bank_mm import bank_mm_plain
+    a = torch.as_tensor(RNG.standard_normal((3, 5, 4)), dtype=torch.float32)
+    b = torch.as_tensor(RNG.standard_normal((3, 4, 6)), dtype=torch.float32)
+    c = torch.as_tensor(RNG.standard_normal((3, 6)), dtype=torch.float32)
+    before = bank_mm.launches
+    assert torch.equal(bank_mm(a, b), torch.bmm(a, b))
+    assert torch.equal(bank_mm(a, b, c, relu=True), bank_mm_plain(a, b, c,
+                                                                  True))
+    torch.testing.assert_close(bank_mm(a, b, c, relu=True),
+                               torch.relu(a @ b + c[:, None]))
+    assert bank_mm.launches == before             # no kernel was launched
+    with pytest.raises(ValueError):
+        bank_mm(a, b.transpose(1, 2))             # inner dims differ
+    with pytest.raises(ValueError):
+        bank_mm(a, b, c[:, :5])                   # bias of another width
+    with pytest.raises(TypeError):
+        bank_mm(a.double(), b.double())           # float32 only
+
+
 @pytest.fixture
 def clean_dispatch(tmp_path):
     # both dispatch layers start on an absent DB, whatever lies in the cwd
