@@ -230,9 +230,12 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      ``model=1`` bit for bit; (d) on the CPU with the card hidden
      (``chip_smoke.py --phase23-cpu``): bench_serve_tp's 8-way scenario (8
      gloo ranks) and its TP-aware codesign, then bench_acquisition
-     (hypervolume parity required); last, bench_batched_eval alone.  A
-     correctness gate that fails ends the smoke; each speed gate prints
-     ``gate <name> pass|MISS <reading>`` and a miss is a reading.
+     (hypervolume parity required); last, bench_batched_eval alone, then
+     bench_sw_dse's round loop alone in a process on the card
+     (``chip_smoke.py --phase23-sw-dse``: both engines' seconds, parity
+     required).  A correctness gate that fails ends the smoke; each speed
+     gate prints ``gate <name> pass|MISS <reading>`` and a miss is a
+     reading.
 Each model is freed before the next one is drawn.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -485,6 +488,8 @@ def main() -> int:
         return phase23_cpu()
     if sys.argv[1:2] == ["--phase23-figs"]:
         return phase23_figs()
+    if sys.argv[1:2] == ["--phase23-sw-dse"]:
+        return phase23_sw_dse()
     import torch
     require(torch.cuda.is_available(), "no CUDA device: this smoke runs on the "
             "card only")
@@ -3915,9 +3920,9 @@ def run_bench(torch, rows: list[dict]) -> None:
     process of their own (``phase23_figs``); (c) the serving gates at full
     width (qwen3-8b, float32) here; (d) the 8-way tensor-parallel scenario,
     the TP-aware codesign and bench_acquisition on the CPU with the card
-    hidden (``phase23_cpu``); last, bench_batched_eval alone.  A
-    correctness gate that fails ends the smoke; a speed gate's miss is a
-    reading."""
+    hidden (``phase23_cpu``); last, bench_batched_eval alone, then
+    bench_sw_dse's round loop alone (``phase23_sw_dse``).  A correctness
+    gate that fails ends the smoke; a speed gate's miss is a reading."""
     t_all = time.perf_counter()
     by_name = {r_["name"]: r_ for r_ in rows}
     speed: list[bool] = []
@@ -3948,8 +3953,41 @@ def run_bench(torch, rows: list[dict]) -> None:
     _host_gate(BENCH_LAST, {
         "out": out, "seconds": sec, "exit": code, "metrics": importlib_attr(
             BENCH_LAST, "LAST_METRICS")}, speed)
+    _sw_dse_alone(speed)
     print(f"  {sum(speed)} of {len(speed)} speed gates pass; phase 23 took "
           f"{time.perf_counter() - t_all:.1f} s")
+
+
+def _sw_dse_alone(speed: list[bool]) -> None:
+    """bench_sw_dse's round loop (its warm-up, best of 2) alone in a
+    process on the card, as ``python -m repro_torch.bench.bench_sw_dse``
+    runs it: both engines' seconds, parity required, the 5x gate a
+    reading."""
+    from repro_torch.bench import bench_sw_dse
+
+    print("then bench_sw_dse's round loop alone, in a process on the card")
+    t0 = time.perf_counter()
+    job = _spawn([str(ROOT / "chip_smoke.py"), "--phase23-sw-dse"], "sw_dse",
+                 "phase23", hide_card=False)
+    m = json.loads(_finish(job, t0 + 300).strip().splitlines()[-1])
+    require(m["parity"], "bench_sw_dse alone: the batched engine's "
+            "schedules or latencies differ from the per-search engine's")
+    sp = m["reference_s"] / m["batched_s"]
+    print(f"  per-search engine {m['reference_s']:.3f} s, lock-step engine "
+          f"{m['batched_s']:.3f} s ({time.perf_counter() - t0:.1f} s in all)")
+    speed.append(_gate("bench_sw_dse_round_loop_alone",
+                       sp >= bench_sw_dse.TARGET_SPEEDUP, f"{sp:.1f}x"))
+
+
+def phase23_sw_dse() -> int:
+    """Phase 23's last reading, a process on the card: bench_sw_dse's
+    round loop; one JSON line."""
+    from repro_torch.bench import bench_sw_dse
+
+    t_ref, t_bat, parity, _, _ = bench_sw_dse.run_round_loop("cuda")
+    print(json.dumps({"reference_s": t_ref, "batched_s": t_bat,
+                      "parity": parity}))
+    return 0
 
 
 def _bank_leaves(state, i: int) -> list:

@@ -742,23 +742,27 @@ def _batch_group(prep: _Prep, tgt: Target, hws: Sequence[HWConfig],
             "vmem_cap": vmem}
 
 
-def _report_at(prep: _Prep, out: dict[str, np.ndarray], i: int) -> CostReport:
-    """Materialize one CostReport row from the batch arrays."""
-    legal = bool(out["legal"][i])
-    if not legal and not math.isfinite(out["area_um2"][i]):
-        return ILLEGAL
-    why = ""
-    if out["overflow"][i]:
-        why = (f"working set {int(out['vmem_bytes'][i])}B "
-               f"> vmem {int(out['vmem_cap'][i])}B")
-    return CostReport(
-        float(out["latency_s"][i]), float(out["energy_j"][i]),
-        float(out["power_w"][i]), float(out["area_um2"][i]),
-        float(out["flops"][i]),
-        prep.useful_flops if legal else 0.0,
-        float(out["hbm_bytes"][i]), float(out["compute_s"][i]),
-        float(out["memory_s"][i]), int(out["calls"][i]),
-        int(out["vmem_bytes"][i]), legal, why)
+def _reports(prep: _Prep, out: dict[str, np.ndarray]) -> list[CostReport]:
+    """Every CostReport row of the batch arrays.  Each column is read back
+    as Python numbers once (``tolist`` gives each element's ``float()`` /
+    ``int()`` / ``bool()``), not element by element."""
+    c = {key: col.tolist() for key, col in out.items()}
+    reps = []
+    for i, legal in enumerate(c["legal"]):
+        if not legal and not math.isfinite(c["area_um2"][i]):
+            reps.append(ILLEGAL)
+            continue
+        why = ""
+        if c["overflow"][i]:
+            why = (f"working set {int(c['vmem_bytes'][i])}B "
+                   f"> vmem {int(c['vmem_cap'][i])}B")
+        reps.append(CostReport(
+            c["latency_s"][i], c["energy_j"][i], c["power_w"][i],
+            c["area_um2"][i], c["flops"][i],
+            prep.useful_flops if legal else 0.0, c["hbm_bytes"][i],
+            c["compute_s"][i], c["memory_s"][i], int(c["calls"][i]),
+            int(c["vmem_bytes"][i]), legal, why))
+    return reps
 
 
 def _broadcast_hws(hw_configs, n: int) -> list[HWConfig]:
@@ -835,8 +839,7 @@ def evaluate_batch_reports(workload: TensorExpr,
         prep = _get_prep(workload)
         out = _batch_group(prep, tgt, [hws[i] for i in todo],
                            [schedules[i] for i in todo])
-        for j, i in enumerate(todo):
-            rep = _report_at(prep, out, j)
+        for i, rep in zip(todo, _reports(prep, out)):
             reports[i] = rep
             if cache is not None:
                 cache.put(keys[i], rep)

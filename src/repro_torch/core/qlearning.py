@@ -14,8 +14,10 @@ Two drivers share one program (DESIGN.md §10):
     action selection is one batched forward over every search's frontier
     (:func:`_bank_forward`), and a round's train steps, padded to k steps,
     run as one call of :func:`_bank_train_steps` over all N searches.  On a
-    card that call is one CUDA graph replay, captured once per bank and
-    round shape; on the CPU it runs eagerly.
+    card the forward and that call are each one CUDA graph replay, captured
+    once per configuration and shape on one static state that a bank (or a
+    standalone DQN) holds until another takes it over; on the CPU they run
+    eagerly.
   * :class:`DQN`     — one agent, one software space, used by the scalar
     ``engine="reference"`` DSE path: the N=1 instance of the bank's forward
     and the N=1, m=1 instance of its train steps.
@@ -32,6 +34,8 @@ on the card.
 from __future__ import annotations
 
 import math
+import weakref
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import numpy as np
@@ -177,26 +181,10 @@ def _bank_train_steps(params, target, m, v, t, S, A, R, S2, D, DT,
     return torch.stack(losses, dim=1)
 
 
-def _pack(batches: list[list[tuple]], m: int, batch: int,
-          n_feat: int) -> np.ndarray:
-    """Every search's drawn minibatches, each a (s, a, r, s2, done) tuple
-    in draw order, as one float32 array (N, m, batch, 2F + 4), the round's
-    one upload: per row s, s2, a, r, done and do_train; steps past a
-    search's draws stay zero (do_train false)."""
-    F = n_feat
-    out = np.zeros((len(batches), m, batch, 2 * F + 4), np.float32)
-    for si, drawn in enumerate(batches):
-        for step, (s, a, r, s2, d) in enumerate(drawn):
-            rows = out[si, step]
-            rows[:, :F], rows[:, F:2 * F] = s, s2
-            rows[:, 2 * F], rows[:, 2 * F + 1], rows[:, 2 * F + 2] = a, r, d
-            rows[:, 2 * F + 3] = 1.0
-    return out
-
-
 def _unpack(P: torch.Tensor, n_feat: int) -> tuple:
-    """``_pack``'s array on the device as _bank_train_steps' S, A, R, S2,
-    D, DT."""
+    """A round's minibatches on the device, (N, m, batch, 2F + 4) float32
+    rows in ``Replay``'s layout (s, s2, a, r, done, do_train; steps past a
+    search's draws all zero), as _bank_train_steps' S, A, R, S2, D, DT."""
     F = n_feat
     return (P[..., :F], P[..., 2 * F].long(), P[..., 2 * F + 1],
             P[..., F:2 * F], P[..., 2 * F + 2], P[:, :, 0, 2 * F + 3] > 0)
@@ -208,17 +196,24 @@ class _State:
     Adam's ``m`` and ``v`` (all views of one buffer ``flat``, so the whole
     state copies in one call) and the update counts ``t`` (N,) int32, on
     one device and updated in place.  ``shapes`` holds each layer's (w, b)
-    shapes; a new state is all zeros."""
+    shapes; a new state is all zeros.
+
+    Where ``graph`` (the card's default) the forward and the train steps
+    replay CUDA graphs of this configuration's :class:`_Capture`; while
+    this state holds the capture, its leaves are the capture's buffers, so
+    a replay reads and writes them in place.  Read the leaves through the
+    attributes at the time of use: they move when the capture changes
+    hands."""
 
     def __init__(self, shapes, gamma: float, device):
         self.shapes = tuple((tuple(w), tuple(b)) for w, b in shapes)
         self.device = torch.device(device)
         sizes = [math.prod(x) for layer in self.shapes for x in layer]
-        self.flat = torch.zeros(4, sum(sizes), device=self.device)
-        self.params, self.target, self.m, self.v = (
-            self._views(self.flat[i]) for i in range(4))
-        self.t = torch.zeros(self.shapes[0][0][0], dtype=torch.int32,
-                             device=self.device)
+        flat = torch.zeros(4, sum(sizes), device=self.device)
+        t = torch.zeros(self.shapes[0][0][0], dtype=torch.int32,
+                        device=self.device)
+        self._own = (flat, t, tuple(self._views(flat[i]) for i in range(4)))
+        self._bind(*self._own)
         self.gamma = gamma
         self.n_feat = self.shapes[0][0][1]
         self.graph = self.device.type == "cuda"
@@ -232,6 +227,10 @@ class _State:
                 off += math.prod(shape)
             out.append(views)
         return out
+
+    def _bind(self, flat: torch.Tensor, t: torch.Tensor, trees) -> None:
+        self.flat, self.t = flat, t
+        self.params, self.target, self.m, self.v = trees
 
     @classmethod
     def of(cls, params, gamma: float) -> "_State":
@@ -247,113 +246,193 @@ class _State:
     def carry(self) -> tuple:
         return self.params, self.target, self.m, self.v, self.t
 
+    def _hold(self) -> "_Capture":
+        """This configuration's capture, holding this state.  The contents
+        move only when the capture changes hands: the state that held it
+        gets its own buffers back with what the capture holds, then this
+        state's contents go in and its leaves become the capture's."""
+        key = (self.device, self.shapes, self.gamma)
+        cap = _CAPTURES.get(key)
+        if cap is None:
+            cap = _CAPTURES[key] = _Capture(_State(*key[1:], self.device))
+        prev = cap.holder()
+        if prev is self:
+            return cap
+        if prev is not None:
+            flat, t, _ = prev._own
+            flat.copy_(cap.state.flat)
+            t.copy_(cap.state.t)
+            prev._bind(*prev._own)
+        cap.state.flat.copy_(self.flat)
+        cap.state.t.copy_(self.t)
+        self._bind(*cap.state._own)
+        cap.holder = weakref.ref(self)
+        return cap
+
     def forward(self, feats: np.ndarray) -> np.ndarray:
         """Q-values (N, k, A) for states (N, k, F): one upload, one
-        forward, one read-back."""
-        with torch.no_grad():
-            x = torch.as_tensor(np.asarray(feats, np.float32),
-                                device=self.device)
-            return _bank_forward(self.params, x).cpu().numpy()
+        forward (a graph replay where ``graph``), one read-back."""
+        return self.forward_async(feats)()
+
+    def forward_async(self, feats: np.ndarray) -> Callable[[], np.ndarray]:
+        """``forward`` in two halves: this call queues it; the function it
+        returns waits for the Q-values and returns them.  Where ``graph``,
+        the upload and the read-back go through pinned buffers without a
+        sync, so the host runs on while the card works through what was
+        queued before.  Call that function before any other forward of
+        this configuration and shape: those share its buffers, and it
+        raises if one ran in between."""
+        x = np.ascontiguousarray(feats, np.float32)
+        if not self.graph:
+            with torch.no_grad():
+                q = _bank_forward(self.params, torch.from_numpy(x).to(
+                    self.device)).cpu().numpy()
+            return lambda: q
+        g = self._hold().replay("forward", x)
+        g.host_out.copy_(g.out, non_blocking=True)
+        g.done.record()
+        call = g.calls
+
+        def wait() -> np.ndarray:
+            if g.calls != call:
+                raise RuntimeError("another forward of this configuration "
+                                   "and shape replaced these Q-values")
+            g.done.synchronize()
+            return g.host_out.numpy().copy()
+        return wait
 
     def train(self, packed: np.ndarray) -> torch.Tensor:
-        """``_pack``'s round through _bank_train_steps: one CUDA graph
-        replay where ``graph`` (the card's default), else eagerly.  Returns
-        the losses (N, m) on the device, unread."""
-        host = torch.from_numpy(packed)
+        """A round's minibatches (``_unpack``'s layout) through
+        _bank_train_steps: one graph replay where ``graph``, else eagerly.
+        Returns the losses (N, m) on the device, unread."""
         if not self.graph:
-            return _bank_train_steps(*self.carry(),
-                                     *_unpack(host.to(self.device),
-                                              self.n_feat), self.gamma)
-        key = (self.device, packed.shape, self.shapes, self.gamma)
-        g = _GRAPHS.get(key)
-        if g is None:
-            g = _GRAPHS[key] = self._capture(packed.shape)
-        g.state.flat.copy_(self.flat)
-        g.state.t.copy_(self.t)
-        g.inp.copy_(host)                     # the round's one upload
-        g.graph.replay()
-        kernels.bank_mm.launches += g.launches
-        self.flat.copy_(g.state.flat)
-        self.t.copy_(g.state.t)
-        return g.losses.clone()
+            return _bank_train_steps(
+                *self.carry(), *_unpack(torch.from_numpy(packed).to(
+                    self.device), self.n_feat), self.gamma)
+        g = self._hold().replay("train", packed)
+        g.done.record()
+        return g.out.clone()
 
-    def _capture(self, shape: tuple) -> "_Graph":
-        """A CUDA graph of _bank_train_steps on a static state of this
-        state's shapes and a static input of ``shape``, after one eager
-        run on a side stream that loads every kernel first.  A capture
-        launches nothing: the ``bank_mm`` calls it records are taken off
-        the kernel's count and added back at each replay."""
-        state = _State(self.shapes, self.gamma, self.device)
-        inp = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        steps = lambda: _bank_train_steps(  # noqa: E731
-            *state.carry(), *_unpack(inp, self.n_feat), self.gamma)
-        with torch.cuda.device(self.device):
+
+class _Capture:
+    """One configuration's CUDA graphs: the forward by input shape and a
+    round's train steps by round shape, all captured on one static state
+    (``state``), and a weak reference to the ``_State`` whose contents
+    that static state holds (the reference's one jit compile per engine
+    configuration).  A process's banks and standalone DQNs of one
+    configuration take turns on it: not for use from several threads at
+    once."""
+
+    def __init__(self, state: _State):
+        self.state = state
+        self.graphs: dict[tuple, _Graph] = {}
+        self.holder = lambda: None
+
+    def replay(self, kind: str, x: np.ndarray) -> "_Graph":
+        """Upload ``x`` through the pinned buffer into the static input of
+        the ``kind`` graph of its shape (captured at first use) and replay
+        it; returns the graph, its output not yet read."""
+        g = self.graphs.get((kind, x.shape))
+        if g is None:
+            g = self.graphs[(kind, x.shape)] = self._record(kind, x.shape)
+        g.done.synchronize()            # the last call's copies have landed
+        g.host_in.numpy()[...] = x
+        g.inp.copy_(g.host_in, non_blocking=True)   # the call's one upload
+        g.graph.replay()
+        g.calls += 1
+        kernels.bank_mm.launches += g.launches
+        return g
+
+    def _program(self, kind: str, state: _State, inp: torch.Tensor):
+        with torch.no_grad():
+            if kind == "forward":
+                return _bank_forward(state.params, inp)
+            return _bank_train_steps(*state.carry(),
+                                     *_unpack(inp, state.n_feat), state.gamma)
+
+    def _record(self, kind: str, shape: tuple) -> "_Graph":
+        """A CUDA graph of the ``kind`` program on the static state and a
+        static input of ``shape``, after one eager run on a scratch state
+        on a side stream that loads every kernel first (the static state
+        may hold a live state's contents: a warm-up there would train it).
+        A capture launches nothing: the ``bank_mm`` calls it records are
+        taken off the kernel's count and added back at each replay."""
+        st = self.state
+        inp = torch.zeros(shape, dtype=torch.float32, device=st.device)
+        with torch.cuda.device(st.device):
             main, side = torch.cuda.current_stream(), torch.cuda.Stream()
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                steps()
+                self._program(kind, _State(st.shapes, st.gamma, st.device),
+                              torch.zeros_like(inp))
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             before = kernels.bank_mm.launches
             with torch.cuda.graph(graph):
-                losses = steps()
+                out = self._program(kind, st, inp)
             held = kernels.bank_mm.launches - before
             kernels.bank_mm.launches = before
-        return _Graph(state, inp, graph, losses, held)
+        pinned = lambda t: torch.empty(  # noqa: E731
+            t.shape, dtype=t.dtype, pin_memory=True)
+        return _Graph(inp, graph, out, held, pinned(inp),
+                      pinned(out) if kind == "forward" else None,
+                      torch.cuda.Event())
 
 
 @dataclass
 class _Graph:
-    """One captured round: the static state and input it reads and
-    writes, its losses (N, m) and the ``bank_mm`` launches a replay
-    makes."""
+    """One captured program: the static input it reads, its static output
+    (Q-values (N, k, A) or losses (N, m)), the ``bank_mm`` launches a
+    replay makes, the pinned host buffers its input (and the forward's
+    output) pass through, an event recorded after a call's copies, and
+    the number of replays so far."""
 
-    state: _State
     inp: torch.Tensor
     graph: torch.cuda.CUDAGraph
-    losses: torch.Tensor
+    out: torch.Tensor
     launches: int
+    host_in: torch.Tensor
+    host_out: torch.Tensor | None
+    done: torch.cuda.Event
+    calls: int = 0
 
 
-# The captured rounds by (device, round shape, leaf shapes, gamma): every
-# bank and standalone DQN of one configuration replays one capture, copying
-# its state in and out (the reference's one jit compile per engine
-# configuration).  A process's banks take turns on it: not for use from
-# several threads at once.
-_GRAPHS: dict[tuple, _Graph] = {}
+# every configuration's capture by (device, leaf shapes, gamma)
+_CAPTURES: dict[tuple, _Capture] = {}
 
 
 @dataclass
 class Replay:
+    """A ring of transitions, each one float32 row in ``_unpack``'s layout
+    (s, s2, a, r, done, 1), so a minibatch is one gather."""
+
     capacity: int
-    s: np.ndarray = None
-    a: np.ndarray = None
-    r: np.ndarray = None
-    s2: np.ndarray = None
-    done: np.ndarray = None
+    rows: np.ndarray = None
     n: int = 0
     ptr: int = 0
 
-    def _alloc(self, d: int) -> None:
-        self.s = np.zeros((self.capacity, d), np.float32)
-        self.s2 = np.zeros((self.capacity, d), np.float32)
-        self.a = np.zeros(self.capacity, np.int32)
-        self.r = np.zeros(self.capacity, np.float32)
-        self.done = np.zeros(self.capacity, np.float32)
-
     def add(self, s, a, r, s2, done):
-        if self.s is None:
-            self._alloc(len(s))
-        i = self.ptr
-        self.s[i], self.a[i], self.r[i], self.s2[i], self.done[i] = \
-            s, a, r, s2, float(done)
-        self.ptr = (i + 1) % self.capacity
+        F = len(s)
+        if self.rows is None:
+            self.rows = np.zeros((self.capacity, 2 * F + 4), np.float32)
+        row = self.rows[self.ptr]
+        row[:F], row[F:2 * F] = s, s2
+        row[2 * F], row[2 * F + 1], row[2 * F + 2] = a, r, float(done)
+        row[2 * F + 3] = 1.0
+        self.ptr = (self.ptr + 1) % self.capacity
         self.n = min(self.n + 1, self.capacity)
 
-    def sample(self, rng: np.random.Generator, batch: int):
+    def draw(self, rng: np.random.Generator, batch: int,
+             out: np.ndarray) -> None:
+        """``batch`` rows drawn uniformly from those it holds into ``out``
+        (batch, 2F + 4): one ``rng.integers`` call, one gather."""
         idx = rng.integers(0, self.n, size=batch)
-        return (self.s[idx], self.a[idx], self.r[idx], self.s2[idx],
-                self.done[idx])
+        np.take(self.rows, idx, axis=0, out=out)
+
+    @property
+    def s(self) -> np.ndarray:
+        """The states column of every row."""
+        return self.rows[:, :(self.rows.shape[1] - 4) // 2]
 
 
 class DQN:
@@ -422,8 +501,9 @@ class DQN:
         lock-step weight trajectories are bit-identical."""
         if self.replay.n < batch:
             return None
-        drawn = self.replay.sample(self.rng, batch)
-        packed = _pack([[drawn]], 1, batch, self.state.n_feat)
+        packed = np.empty((1, 1, batch, self.replay.rows.shape[1]),
+                          np.float32)
+        self.replay.draw(self.rng, batch, packed[0, 0])
         loss = self.state.train(packed)
         self.eps = max(self.eps_min, self.eps * self.eps_decay)
         return float(loss[0, 0])
@@ -485,17 +565,35 @@ class DQNBank:
         those consume RNG draws, exactly as the reference twin's
         ``select_batch`` on m states, and the padded tail comes back
         zeroed."""
-        greedy = np.argmax(self.q_values_round(feats), axis=2)
-        N, k = greedy.shape
-        acts = np.zeros((N, k), dtype=int)
+        return self.select_round_async(feats, counts)()
+
+    def select_round_async(self, feats: np.ndarray,
+                           counts: list[int] | None = None
+                           ) -> Callable[[], np.ndarray]:
+        """``select_round`` in two halves: this call queues the forward
+        and makes every search's exploration draws; the function it
+        returns reads the Q-values back and returns the actions.  Draws
+        that follow the selection in each search's RNG stream can be made
+        in between, while the card computes."""
+        pending = self.state.forward_async(feats)
+        N, k = feats.shape[:2]
+        noise = []
         for s in range(N):
             m = k if counts is None else counts[s]
-            if not m:
-                continue
-            explore = self.rngs[s].random(m) < self.eps[s]
-            random_a = self.rngs[s].integers(self.n_actions, size=m)
-            acts[s, :m] = np.where(explore, random_a, greedy[s, :m])
-        return acts
+            noise.append((self.rngs[s].random(m) < self.eps[s],
+                          self.rngs[s].integers(self.n_actions, size=m))
+                         if m else None)
+
+        def actions() -> np.ndarray:
+            greedy = np.argmax(pending(), axis=2)
+            acts = np.zeros((N, k), dtype=int)
+            for s, drawn in enumerate(noise):
+                if drawn is not None:
+                    explore, random_a = drawn
+                    m = len(explore)
+                    acts[s, :m] = np.where(explore, random_a, greedy[s, :m])
+            return acts
+        return actions
 
     def train_round(self, s: np.ndarray, a: np.ndarray, r: np.ndarray,
                     s2: np.ndarray, done: np.ndarray | None = None,
@@ -512,19 +610,23 @@ class DQNBank:
         N, k = a.shape
         if done is None:
             done = np.zeros((N, k), np.float32)
-        batches: list[list[tuple]] = [[] for _ in range(N)]
+        # the round's minibatches, steps padded to k (the per-round
+        # maximum) so one graph serves the warm-up round and steady state
+        # alike: one capture per round shape instead of one per replay fill
+        # level; steps past a search's draws stay zero (do_train false)
+        packed = np.zeros((N, k, self.batch, 2 * s.shape[-1] + 4),
+                          np.float32)
+        warm = False
         for si in range(N):
             rep, rng = self.replays[si], self.rngs[si]
+            step = 0
             for j in range(k if counts is None else counts[si]):
-                rep.add(np.asarray(s[si, j], np.float32), a[si, j], r[si, j],
-                        np.asarray(s2[si, j], np.float32), done[si, j])
+                rep.add(s[si, j], a[si, j], r[si, j], s2[si, j], done[si, j])
                 if rep.n >= self.batch:
-                    batches[si].append(rep.sample(rng, self.batch))
+                    rep.draw(rng, self.batch, packed[si, step])
+                    step += 1
                     self.eps[si] = max(self.eps_min,
                                        self.eps[si] * self.eps_decay)
-        if all(len(b) == 0 for b in batches):
-            return
-        # pad the step axis to k (the per-round maximum) so one graph serves
-        # the warm-up round and steady state alike: one capture per round
-        # shape instead of one per replay fill level
-        self.state.train(_pack(batches, k, self.batch, s.shape[-1]))
+            warm |= step > 0
+        if warm:
+            self.state.train(packed)

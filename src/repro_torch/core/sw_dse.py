@@ -160,7 +160,9 @@ def _keep_indices(pool: list, lat: list[float], n_keep: int) -> list[int]:
 def _reward(prev: float, new: float) -> float:
     """Relative-improvement reward of revising a candidate (paper Fig. 5)."""
     if math.isfinite(new) and math.isfinite(prev) and prev > 0:
-        return float(np.clip((prev - new) / prev, -1.0, 1.0))
+        # finite, so min/max clip it as np.clip does, without numpy's
+        # per-call overhead on a Python float
+        return min(max((prev - new) / prev, -1.0), 1.0)
     return -1.0 if not math.isfinite(new) else 0.0
 
 
@@ -250,34 +252,27 @@ def _run_batched_body(specs: list[SearchSpec], *, target: str,
     n_feat = spaces[0].n_features      # space, which is what lets one bank
     # serve heterogeneous searches
 
-    # per-search report/feature memos: every schedule is evaluated exactly
-    # once per search (the shared EvalCache additionally dedups across
-    # searches probing identical (hw, schedule) points)
-    repmaps: list[dict] = [{} for _ in range(N)]
-    fmaps: list[dict] = [{} for _ in range(N)]
-
-    def remember(si: int, scheds: list[Schedule], reps: list) -> list[float]:
-        rm = repmaps[si]
-        for s, rep in zip(scheds, reps):
-            rm[s] = rep
-        return [float(rep.latency_s) for rep in reps]
-
-    def feat_of(si: int, sched: Schedule) -> np.ndarray:
-        f = fmaps[si].get(sched)
-        if f is None:
-            f = spaces[si].features(sched, repmaps[si].get(sched))
-            fmaps[si][sched] = f
-        return f
-
+    # per pool member, beside its latency: its report and its DQN features
+    # (computed when the member is first chosen or revised).  Lists, not
+    # memos by schedule: nothing outlives its pool slot, so a run leaves
+    # the collector little to do; a schedule that comes back is scored
+    # again by its round's union pass, to the same report and features
     pools: list[list[Schedule]] = []
     for space, rng in zip(spaces, rngs):
         pools.append([space.default_schedule()]
                      + [space.random_schedule(rng)
                         for _ in range(pool_size - 1)])
-    init_reps = _union_reports(spaces, pools, target, cache)
-    lats = [remember(si, pools[si], init_reps[si]) for si in range(N)]
+    reps = _union_reports(spaces, pools, target, cache)
+    lats = [[float(rep.latency_s) for rep in r] for r in reps]
+    fpool: list[list] = [[None] * pool_size for _ in range(N)]
     evals = [pool_size] * N
     history = [[min(l)] for l in lats]
+
+    def feat_at(si: int, i: int) -> np.ndarray:
+        f = fpool[si][i]
+        if f is None:
+            f = fpool[si][i] = spaces[si].features(pools[si][i], reps[si][i])
+        return f
 
     bank = (DQNBank(n_feat, n_moves, [sp.seed for sp in specs],
                     device=device) if use_qlearning else None)
@@ -297,51 +292,65 @@ def _run_batched_body(specs: list[SearchSpec], *, target: str,
             feats = np.zeros((N, k, n_feat), np.float32)
             for si in range(N):
                 for j, i in enumerate(chosen[si]):
-                    feats[si, j] = feat_of(si, pools[si][i])
-            if use_qlearning:
-                acts = bank.select_round(feats, counts=counts)  # one forward
+                    feats[si, j] = feat_at(si, i)
+            if use_qlearning:                       # one forward
+                select = bank.select_round_async(feats, counts=counts)
             else:
                 acts = np.zeros((N, k), int)
                 for si in range(N):
                     if counts[si]:
                         acts[si, :counts[si]] = rngs[si].integers(
                             n_moves, size=counts[si])
+            # each search's refill draws follow its selection draws in its
+            # RNG stream (revising draws nothing), so they are made while
+            # the card runs the forward and the train steps queued before it
+            refills = [[spaces[si].random_schedule(rngs[si])
+                        for _ in range(n_refill)] for si in range(N)]
+            if use_qlearning:
+                acts = select()
             revised = [[spaces[si].apply(pools[si][i], spaces[si].moves[int(a)],
                                          rngs[si])
                         for i, a in zip(chosen[si], acts[si][:counts[si]])]
                        for si in range(N)]
-            refills = [[spaces[si].random_schedule(rngs[si])
-                        for _ in range(n_refill)] for si in range(N)]
             # the round's entire evaluation demand — every search's frontier and
             # refill — in one union pass
             union = _union_reports(spaces,
                                    [revised[si] + refills[si] for si in range(N)],
                                    target, cache)
-            new_lats = [remember(si, revised[si], union[si][:counts[si]])
+            new_lats = [[float(rep.latency_s) for rep in union[si]]
                         for si in range(N)]
-            refill_lats = [remember(si, refills[si], union[si][counts[si]:])
-                           for si in range(N)]
+            new_f: list[list] = [[None] * counts[si] for si in range(N)]
 
             if use_qlearning:
                 next_feats = np.zeros((N, k, n_feat), np.float32)
                 rewards = np.zeros((N, k))
                 for si in range(N):
                     for j, i in enumerate(chosen[si]):
-                        next_feats[si, j] = feat_of(si, revised[si][j])
+                        # a move that changes nothing (a slot past the
+                        # schedule's loops, a tile at its bound) keeps the
+                        # parent's features: the same schedule and report
+                        s2 = revised[si][j]
+                        new_f[si][j] = (
+                            feat_at(si, i) if s2 == pools[si][i]
+                            else spaces[si].features(s2, union[si][j]))
+                        next_feats[si, j] = new_f[si][j]
                         rewards[si, j] = _reward(lats[si][i], new_lats[si][j])
                 with obs.span("sw_dse.train_round"):
                     bank.train_round(feats, acts, rewards, next_feats,
                                      counts=counts)    # one graph replay
 
             for si in range(N):
+                m = counts[si]
                 pools[si] += revised[si]
-                lats[si] += new_lats[si]
-                evals[si] += counts[si]
+                lats[si] += new_lats[si][:m]
+                reps[si] += union[si][:m]
+                fpool[si] += new_f[si]
+                evals[si] += m
                 keep = _keep_indices(pools[si], lats[si], n_keep)
-                pools[si] = [pools[si][i] for i in keep]
-                lats[si] = [lats[si][i] for i in keep]
-                pools[si] += refills[si]
-                lats[si] += refill_lats[si]
+                pools[si] = [pools[si][i] for i in keep] + refills[si]
+                lats[si] = [lats[si][i] for i in keep] + new_lats[si][m:]
+                reps[si] = [reps[si][i] for i in keep] + union[si][m:]
+                fpool[si] = [fpool[si][i] for i in keep] + [None] * n_refill
                 evals[si] += n_refill
                 history[si].append(min(lats[si]) if lats[si] else math.inf)
 

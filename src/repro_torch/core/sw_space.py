@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 
@@ -65,18 +66,27 @@ class SoftwareSpace:
         self.moves.append(Move("switch"))          # next tensorize choice
 
     # -- construction -----------------------------------------------------------
-    def random_schedule(self, rng: np.random.Generator) -> Schedule:
-        choice = self.choices[int(rng.integers(len(self.choices)))]
+    @cached_property
+    def _draws(self) -> list[tuple]:
+        """random_schedule's draws per choice: (loop, number of
+        power-of-two tiles up to the loop's extent, extent) for each mapped
+        loop."""
         ext = self.workload.extents
-        tiles = []
-        for c in choice.mapped_compute_indices:
-            hi = _pow2_down(ext[c])
-            t = 1 << int(rng.integers(0, int(math.log2(hi)) + 1))
-            tiles.append((c, min(t, ext[c])))
+        return [(c, tuple((i, _pow2_down(ext[i]).bit_length(), ext[i])
+                          for i in c.mapped_compute_indices))
+                for c in self.choices]
+
+    def random_schedule(self, rng: np.random.Generator) -> Schedule:
+        """A uniform draw: a tensorize choice, a power-of-two tile up to
+        each mapped loop's extent (clipped to it), a shuffled loop order
+        and a fuse factor, drawn in that order from ``rng``."""
+        ints = rng.integers
+        choice, mapped = self._draws[int(ints(len(self._draws)))]
+        tiles = [(c, min(1 << int(ints(top)), e)) for c, top, e in mapped]
         order = list(self.loops)
         rng.shuffle(order)
-        fuse = int(rng.integers(0, 3))
-        return Schedule(choice, tuple(sorted(tiles)), tuple(order), fuse)
+        return Schedule(choice, tuple(sorted(tiles)), tuple(order),
+                        int(ints(3)))
 
     def default_schedule(self) -> Schedule:
         """A library-style untuned mapping: intrinsic-sized tiles, source

@@ -719,3 +719,119 @@ def test_dqn_bank_slot_equals_standalone_dqn_on_the_card(cuda):
             for layer, wl in zip(tree, want):
                 for key in ("w", "b"):
                     assert torch.equal(layer[key][i], wl[key][5])
+
+
+def _state_leaves(state, i):
+    return [x[i] for tree in (state.params, state.target, state.m, state.v)
+            for layer in tree for x in layer.values()] + [state.t[i]]
+
+
+@pytest.mark.cuda
+def test_dqn_bank_captured_forward_equals_eager(cuda):
+    """The replayed forward gives the eager forward's bits, on fresh and on
+    trained weights, at the engine's (16, 6) and a standalone DQN's (1, m)
+    shapes, and counts the ``bank_mm`` launches it replays."""
+    from repro_torch.core.qlearning import DQN, DQNBank, _bank_forward
+
+    F, A, k = 28, 26, 6
+    bank = DQNBank(F, A, list(range(16)), device=cuda)
+    dqn = DQN(F, A, seed=3, device=cuda)
+    rng = np.random.default_rng(1)
+    for rnd in range(8):
+        feats = rng.random((16, k, F)).astype(np.float32)
+        for st, x in ((bank.state, feats),
+                      (dqn.state, feats[3:4, :1 + rnd % k])):
+            st.forward(x)                 # captures at a shape's first call
+            before = bank_mm.launches
+            got = st.forward(x)
+            assert bank_mm.launches - before == 4
+            with torch.no_grad():
+                want = _bank_forward(st.params, torch.as_tensor(
+                    x, device=cuda)).cpu().numpy()
+            assert np.array_equal(got, want)
+        acts = bank.select_round(feats)
+        bank.train_round(feats, acts, rng.uniform(-1, 1, (16, k)),
+                         rng.random((16, k, F)).astype(np.float32))
+    assert bank.t.min() > 0
+
+
+@pytest.mark.cuda
+def test_banks_taking_turns_on_one_capture_keep_their_own_state(cuda):
+    """Two 4-seed banks share one configuration's capture, and so do a
+    1-seed bank and a standalone DQN; taking turns on it, round by round
+    and within a round, each keeps its own state: its actions and, read
+    between turns and at the end, every leaf equal its eager twin's bit for
+    bit."""
+    from repro_torch.core.qlearning import DQN, DQNBank
+
+    F, A, k = 28, 26, 6
+    make = {"a": lambda: DQNBank(F, A, [0, 1, 2, 3], device=cuda),
+            "b": lambda: DQNBank(F, A, [10, 11, 12, 13], device=cuda),
+            "one": lambda: DQNBank(F, A, [5], device=cuda),
+            "dqn": lambda: DQN(F, A, seed=7, device=cuda)}
+    graph = {name: f() for name, f in make.items()}
+    eager = {name: f() for name, f in make.items()}
+    for agent in eager.values():
+        agent.state.graph = False
+    rng = np.random.default_rng(2)
+    for rnd in range(10):
+        n = {"a": 4, "b": 4, "one": 1, "dqn": 1}
+        data = {name: (rng.random((m, k, F)).astype(np.float32),
+                       rng.uniform(-1, 1, (m, k)),
+                       rng.random((m, k, F)).astype(np.float32))
+                for name, m in n.items()}
+        acts = {}
+        for name in ("a", "dqn", "b", "one"):         # select, in turns
+            feats = data[name][0]
+            for side in (graph, eager):
+                agent = side[name]
+                got = (agent.select_batch(feats[0])[None] if name == "dqn"
+                       else agent.select_round(feats))
+                assert name not in acts or (acts[name] == got).all(), name
+                acts[name] = got
+        for name in ("b", "dqn", "a", "one"):          # train, in turns
+            feats, rew, s2 = data[name]
+            for side in (graph, eager):
+                agent = side[name]
+                if name == "dqn":
+                    for j in range(k):
+                        agent.record(feats[0, j], int(acts[name][0, j]),
+                                     float(rew[0, j]), s2[0, j])
+                        agent.train_step()
+                else:
+                    agent.train_round(feats, acts[name], rew, s2)
+            if name in ("b", "a"):   # read a bank while another holds
+                for i in range(n[name]):
+                    assert all(torch.equal(x, y) for x, y in zip(
+                        _state_leaves(graph[name].state, i),
+                        _state_leaves(eager[name].state, i))), (rnd, name)
+    for name in make:
+        g, e = graph[name].state, eager[name].state
+        assert int(g.t.min()) > 0
+        for i in range(g.t.shape[0]):
+            assert all(torch.equal(x, y) for x, y in zip(
+                _state_leaves(g, i), _state_leaves(e, i))), name
+
+
+@pytest.mark.cuda
+def test_pending_forward_refuses_q_values_another_forward_replaced(cuda):
+    """A forward waiting to be read shares its buffers with every forward
+    of its configuration and shape: where another ran in between, reading
+    it raises instead of returning the other state's Q-values; read first,
+    both are their eager twins'."""
+    from repro_torch.core.qlearning import DQNBank, _bank_forward
+
+    F, A, k = 28, 26, 6
+    a = DQNBank(F, A, [0, 1, 2, 3], device=cuda)
+    b = DQNBank(F, A, [10, 11, 12, 13], device=cuda)
+    x = np.random.default_rng(3).random((4, k, F)).astype(np.float32)
+    pending = a.state.forward_async(x)
+    b.state.forward(x)
+    with pytest.raises(RuntimeError, match="replaced"):
+        pending()
+    for bank in (a, b):
+        got = bank.state.forward_async(x)()
+        with torch.no_grad():
+            want = _bank_forward(bank.state.params, torch.as_tensor(
+                x, device=cuda)).cpu().numpy()
+        assert np.array_equal(got, want)

@@ -43,6 +43,16 @@ SEEDS = [7, 11, 13]
 N_FEAT, N_ACT, K = 6, 5, 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs files in parallel workers, where
+    torch's default of a thread per core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def reference_init(seeds, sizes, device):
     """The reference's stacked initial weights, as the port's tensors."""
     keys = jnp.stack([jax.random.PRNGKey(int(s)) for s in seeds])
