@@ -20,6 +20,8 @@ import warnings
 
 import torch
 
+from repro_torch import obs
+
 from . import conv2d as _conv2d
 from . import dotprod as _dotprod
 from . import flash_attention as _flash
@@ -242,11 +244,19 @@ def rwkv6(r, k, v, w, u, state=None, *, implementation: str = "cuda"):
     float32), any T >= 1.  'cuda' runs the kernel (chunks of 16), 'torch'
     the plain chunked version (chunks of 32); neither chunk is a knob."""
     ts = (r, k, v, w, u) + (() if state is None else (state,))
-    if implementation == "cuda":
-        _no_grad_through_kernel("rwkv6", *ts)
-    if not _check(implementation, *ts):
-        return xla_linear.rwkv6(r, k, v, w, u, state)
-    return _rwkv6.rwkv6(r, k, v, w, u, state)
+    # a span on a whole sequence's call (a serving step's, which carries
+    # state, records none); the kernel's wrapper starts its device time at
+    # the launch, after the checks (obs.device_start)
+    rec = obs.recording() if state is None else None
+    span = obs.NULL_SPAN if rec is None else rec.tracer.span("ops.rwkv6", {
+        **{n: t.shape for n, t in zip("rkvwu", ts)},
+        "dtype": str(r.dtype), "implementation": implementation}, r.device)
+    with span:
+        if implementation == "cuda":
+            _no_grad_through_kernel("rwkv6", *ts)
+        if not _check(implementation, *ts):
+            return xla_linear.rwkv6(r, k, v, w, u, state)
+        return _rwkv6.rwkv6(r, k, v, w, u, state)
 
 
 def mamba2(x, a, b, c, state=None, *, implementation: str = "cuda"):

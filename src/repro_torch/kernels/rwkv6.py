@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
+
 from . import cuda_lib
 from .xla_linear import rwkv6 as rwkv6_plain
 
@@ -110,12 +112,15 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=v.device)
     strides = (ctypes.c_longlong * 15)(
         *(s for x in (r, k, v, w, out) for s in x.stride()[:3]))
-    rc = cuda_lib.library().hasco_rwkv6(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u32.data_ptr(), None if s0 is None else s0.data_ptr(),
-        out.data_ptr(), s_t.data_ptr(), spans.data_ptr(), decays.data_ptr(),
-        b, t, h, dk, dv, strides, pl.span_chunks,
-        cuda_lib.dtype_code(v.dtype), torch.cuda.current_stream().cuda_stream)
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u32.data_ptr(), None if s0 is None else s0.data_ptr(),
+            out.data_ptr(), s_t.data_ptr(), spans.data_ptr(),
+            decays.data_ptr(), b, t, h, dk, dv, strides, pl.span_chunks,
+            cuda_lib.dtype_code(v.dtype),
+            torch.cuda.current_stream().cuda_stream)
+    launch = cuda_lib.library().hasco_rwkv6
+    obs.device_start()      # an open span times the launch, not the above
+    rc = launch(*args)
     cuda_lib.check(rc, "rwkv6")
     rwkv6.launches += 1
     return out, s_t

@@ -26,6 +26,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed import context, local
 from repro_torch.distributed.sharding import BATCH_AXES, tp_size
 from repro_torch.kernels import plain
@@ -212,7 +213,17 @@ def make_prefill_step(cfg: ModelConfig, *, tp: int = 1, impl: str = "cuda",
 
     if cache_len is None:
         def prefill_step(params, batch):
-            return mod.forward(params, cfg, batch, tp=tp, impl=impl)
+            st = obs.recording()
+            if st is None:
+                return mod.forward(params, cfg, batch, tp=tp, impl=impl)
+            # the session's count of forwards indexes this one
+            forwards = st.metrics.counter("prefill.forwards")
+            tokens = batch["tokens"]
+            args = {"batch": tokens.shape[0], "seq": tokens.shape[1],
+                    "forward": int(forwards.value)}
+            forwards.inc()
+            with st.tracer.span("prefill.forward", args, tokens.device):
+                return mod.forward(params, cfg, batch, tp=tp, impl=impl)
 
         return _on_mesh(prefill_step, mesh)
 

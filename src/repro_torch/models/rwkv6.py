@@ -30,6 +30,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.distributed import local
 from repro_torch.distributed.sharding import FSDP, TP, P, spec_map
 
@@ -150,13 +151,23 @@ def _channel_mix(p: Params, x, shift_prev=None):
     return rec * local.row_out(hidden @ p["wcv"]), x[:, -1]
 
 
-def _block(p: Params, cfg: ModelConfig, x, tp, impl, state=None):
+def _block(p: Params, cfg: ModelConfig, x, tp, impl, state=None, layer=0):
     st = state or {}
-    att, wkv, sh_t = _time_mix(p, cfg, L.rms_norm(x, p["ln1"]), tp, impl,
-                               st.get("wkv"), st.get("shift_t"))
-    x = x + att
-    cm, sh_c = _channel_mix(p, L.rms_norm(x, p["ln2"]), st.get("shift_c"))
-    return x + cm, {"wkv": wkv, "shift_t": sh_t, "shift_c": sh_c}
+    # spans on the whole-sequence forward; a serving step, which carries
+    # state, records none
+    rec = obs.recording() if state is None else None
+    time_mix, channel_mix = (obs.NULL_SPAN,) * 2 if rec is None else (
+        rec.tracer.span(name, {"layer": layer}, x.device)
+        for name in ("rwkv6.time_mix", "rwkv6.channel_mix"))
+    with time_mix:
+        att, wkv, sh_t = _time_mix(p, cfg, L.rms_norm(x, p["ln1"]), tp,
+                                   impl, st.get("wkv"), st.get("shift_t"))
+        x = x + att
+    with channel_mix:
+        cm, sh_c = _channel_mix(p, L.rms_norm(x, p["ln2"]),
+                                st.get("shift_c"))
+        x = x + cm
+    return x, {"wkv": wkv, "shift_t": sh_t, "shift_c": sh_c}
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +211,7 @@ def forward(params: Params, cfg: ModelConfig, inputs: Params, *,
     x = L.embed(local.take(params, ("embed",)), inputs["tokens"])
     for i in range(cfg.n_layers):
         x, _ = _block(local.take(params, ("layers",), (i,)), cfg, x, tp,
-                      impl)
+                      impl, layer=i)
     x = L.rms_norm(x, params["final_norm"])
     return L.unembed(local.take(params, ("head",)), x, cfg.vocab)
 
@@ -262,7 +273,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     for i in range(cfg.n_layers):
         st = layer(cache, i)
         x, new = _block(local.take(params, ("layers",), (i,)), cfg, x, tp,
-                        impl, state=st)
+                        impl, state=st, layer=i)
         for name, t in new.items():
             st[name].copy_(t)
     x = L.rms_norm(x, params["final_norm"])

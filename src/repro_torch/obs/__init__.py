@@ -29,6 +29,8 @@ Instrumentation idioms::
 """
 from __future__ import annotations
 
+from torch.autograd import profiler as _profiler
+
 from .metrics import (DEFAULT_COUNT_EDGES, DEFAULT_TIME_EDGES, Counter,
                       Gauge, Histogram, MetricsRegistry, geometric_edges,
                       linear_edges)
@@ -36,10 +38,10 @@ from .trace import NULL_SPAN, Tracer
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "ObsState",
-    "Tracer", "DEFAULT_COUNT_EDGES", "DEFAULT_TIME_EDGES", "disable",
-    "enable", "enabled", "export_chrome_trace", "export_telemetry",
-    "geometric_edges", "instant", "linear_edges", "snapshot", "span",
-    "state",
+    "Tracer", "DEFAULT_COUNT_EDGES", "DEFAULT_TIME_EDGES", "device_start",
+    "disable", "enable", "enabled", "export_chrome_trace", "export_telemetry",
+    "geometric_edges", "instant", "linear_edges", "profiled", "recording",
+    "snapshot", "span", "state",
 ]
 
 
@@ -54,6 +56,7 @@ class ObsState:
 
 
 _STATE: ObsState | None = None
+_PROFILED: ObsState | None = None
 
 
 def enable(capacity: int = 65536) -> ObsState:
@@ -64,9 +67,10 @@ def enable(capacity: int = 65536) -> ObsState:
 
 
 def disable() -> None:
-    """Back to no-op mode; the previous session's data is dropped."""
-    global _STATE
-    _STATE = None
+    """Back to no-op mode; the previous session's data, and the profiled
+    stretches' (:func:`profiled`), are dropped."""
+    global _STATE, _PROFILED
+    _STATE = _PROFILED = None
 
 
 def enabled() -> bool:
@@ -78,12 +82,48 @@ def state() -> ObsState | None:
     return _STATE
 
 
-def span(name: str, args: dict | None = None):
-    """A span context manager, or the shared no-op when disabled."""
+def profiled() -> ObsState | None:
+    """The session that spans went into while ``torch.profiler`` recorded
+    and no session was on (every such stretch since :func:`disable`), or
+    ``None`` if there was none."""
+    return _PROFILED
+
+
+def recording() -> ObsState | None:
+    """The session a span opened now records into: the live one; else,
+    while ``torch.profiler`` records, the profiled one (opened here);
+    else ``None``.  The profiler is a second switch for spans, and this
+    the guard of span sites that build ``args`` (``st.tracer.span(name,
+    args, device)``) where :func:`state` guards a session's other work."""
+    global _PROFILED
+    if _STATE is not None:
+        return _STATE
+    if not _profiler._is_profiler_enabled:
+        return None
+    if _PROFILED is None:
+        _PROFILED = ObsState()
+    return _PROFILED
+
+
+def span(name: str, args: dict | None = None, device=None):
+    """A span context manager, or the shared no-op when nothing records:
+    no session and no ``torch.profiler`` (:func:`recording`).  ``device``:
+    where the span's work is enqueued, to time it there (``Tracer.span``);
+    while the profiler records the span is also a profiler range."""
     st = _STATE
-    if st is None:
-        return NULL_SPAN
-    return st.tracer.span(name, args)
+    if st is None:                # recording()'s test, inlined: off, a site
+        if not _profiler._is_profiler_enabled:      # pays two reads
+            return NULL_SPAN
+        st = recording()
+    return st.tracer.span(name, args, device)
+
+
+def device_start() -> None:
+    """Just before a kernel's launch: the innermost open span's device time
+    starts here, not at the checks before it (``Tracer.device_start``)."""
+    st = recording()
+    if st is not None:
+        st.tracer.device_start()
 
 
 def instant(name: str, args: dict | None = None) -> None:

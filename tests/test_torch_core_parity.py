@@ -60,31 +60,85 @@ REWORDED = {"analysis/kv_sanitizer.py": (re.compile(r"(negatives — )[^)]*"),
                                          r"\1a known class of bug")}
 
 
-# the host paths a copy rewrites to cut the DSE's host time, each held to
-# the reference's code bit for bit and draw for draw by
-# tests/test_torch_host_paths.py: the functions rewritten whole (the
-# reference's names, then the copy's), whose definitions are left out of
-# the comparison, and the lines rewritten in place, (the reference's, the
-# copy's), each swapped into the reference once
+# what a copy rewrites: the host paths that cut the DSE's host time, each
+# held to the reference's code bit for bit and draw for draw by
+# tests/test_torch_host_paths.py, and the tracer's extension (below); the
+# functions rewritten whole (the reference's names, then the copy's), whose
+# definitions are left out of the comparison, and the lines rewritten in
+# place, (the reference's, the copy's), each swapped into the reference once
 REWRITTEN = {
     "core/cost_model.py": ({"_report_at"}, {"_reports"}, [(
         "        for j, i in enumerate(todo):\n"
         "            rep = _report_at(prep, out, j)\n",
         "        for i, rep in zip(todo, _reports(prep, out)):\n")]),
-    "core/sw_space.py": ({"random_schedule"}, {"_draws", "random_schedule"}, [(
+    "core/sw_space.py": ({"SoftwareSpace.random_schedule"},
+                         {"SoftwareSpace._draws",
+                          "SoftwareSpace.random_schedule"}, [(
         "from dataclasses import dataclass\n",
         "from dataclasses import dataclass\n"
         "from functools import cached_property\n")]),
+    # the port's tracer also runs on torch.profiler's switch and clock and
+    # times device work (tests/test_torch_obs_spans.py): the span's entry
+    # and exit, the tracer's anchor, event pool and resolution, and the
+    # profiled session's functions are its own
+    "obs/trace.py": (
+        {"_Span.__init__", "_Span.__enter__", "_Span.__exit__",
+         "Tracer.__init__", "Tracer.span", "Tracer.events"},
+        {"_Span.__init__", "_Span.__enter__", "_Span.__exit__",
+         "Tracer.__init__", "Tracer.span", "Tracer.events",
+         "Tracer.device_start", "Tracer._take_events", "Tracer.resolve"}, [(
+            "import time\n", "import time\nfrom collections import deque\n"), (
+            "# event tuple layout: (ph, name, ts_us, dur_us, tid, depth, "
+            "args)\nPH, NAME, TS, DUR, TID, DEPTH, ARGS = range(7)\n",
+            "import torch\nfrom torch.autograd import profiler\n\n"
+            "# event tuple layout: (ph, name, ts_us, dur_us, tid, depth, "
+            "args, device);\n# device: None (host only), milliseconds, or a "
+            "pending CUDA [start, end]\n"
+            "PH, NAME, TS, DUR, TID, DEPTH, ARGS, DEVICE = range(8)\n"), (
+            '    __slots__ = ("_tracer", "name", "args", "_t0", "depth")\n',
+            '    __slots__ = ("_tracer", "name", "args", "_t0", "depth", '
+            '"device",\n                 "_marks", "_stream", "_range")\n')]),
+    "obs/__init__.py": (
+        {"disable", "span"},
+        {"disable", "span", "profiled", "recording", "device_start"}, [(
+            "from __future__ import annotations\n\n",
+            "from __future__ import annotations\n\n"
+            "from torch.autograd import profiler as _profiler\n\n"), (
+            '    "Tracer", "DEFAULT_COUNT_EDGES", "DEFAULT_TIME_EDGES", '
+            '"disable",\n    "enable", "enabled", "export_chrome_trace", '
+            '"export_telemetry",\n    "geometric_edges", "instant", '
+            '"linear_edges", "snapshot", "span",\n    "state",\n',
+            '    "Tracer", "DEFAULT_COUNT_EDGES", "DEFAULT_TIME_EDGES", '
+            '"device_start",\n    "disable", "enable", "enabled", '
+            '"export_chrome_trace", "export_telemetry",\n    '
+            '"geometric_edges", "instant", "linear_edges", "profiled", '
+            '"recording",\n    "snapshot", "span", "state",\n'), (
+            "_STATE: ObsState | None = None\n",
+            "_STATE: ObsState | None = None\n"
+            "_PROFILED: ObsState | None = None\n")]),
 }
 
 
+def _defs(tree: ast.Module):
+    """(qualified name, node) of every module-level function and method:
+    ``f``, ``Class.f``."""
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            yield node.name, node
+        elif isinstance(node, ast.ClassDef):
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef):
+                    yield f"{node.name}.{fn.name}", fn
+
+
 def _without(src: str, names: set[str]) -> str:
-    """``src`` with the definitions of the functions ``names`` (decorators
-    included) cut out and blank-line runs collapsed."""
+    """``src`` with the definitions of the functions ``names`` (qualified:
+    ``f``, ``Class.f``; decorators included) cut out and blank-line runs
+    collapsed."""
     lines = src.splitlines(keepends=True)
-    for node in sorted((n for n in ast.walk(ast.parse(src))
-                        if isinstance(n, ast.FunctionDef) and n.name in names),
-                       key=lambda n: -n.lineno):
+    found = dict(_defs(ast.parse(src)))
+    assert names <= set(found), names - set(found)
+    for node in sorted((found[n] for n in names), key=lambda n: -n.lineno):
         start = min([node.lineno] + [d.lineno for d in node.decorator_list])
         del lines[start - 1:node.end_lineno]
     return re.sub(r"\n(\s*\n)+", "\n\n", "".join(lines))
