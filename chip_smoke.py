@@ -77,14 +77,18 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      outputs rounded otherwise than the float64 result rounded once, beside
      the plain version's own share at chunk 16 against 32 (read, no limit);
  11. rwkv6-3b's full-sequence forward at full width and depth over 1 x 4096
-     tokens (one rwkv6 launch per layer, counted from that run alone), with
-     phase 7's comparisons, the kernel forward against the plain forward at
-     the kernel's own chunk of 16 (read, no limit), and the same two
-     forwards on the weights cast to float32;
- 12. rwkv6-3b served as in phase 8: every prefill launches the kernel once
-     per layer, each request's prefill logits agree with the kernel
-     forward's, and one prompt prefilled in two halves (the state carried
-     through ``decode_step``) agrees with it prefilled whole;
+     tokens (one rwkv6 launch and one launch of each of the block's six
+     glue kernels per layer, counted from that run alone), with phase 7's
+     comparisons (every glue call held to its plain version too: the
+     elementwise kernels' bits, the norms' within GLUE_TOL), the kernel
+     forward against the plain forward at the kernel's own chunk of 16
+     (read, no limit), and the same two forwards on the weights cast to
+     float32;
+ 12. rwkv6-3b served as in phase 8: every prefill launches the rwkv6
+     kernel once per layer and every prefill and decode step each glue
+     kernel once per layer, each request's prefill logits agree with the
+     kernel forward's, and one prompt prefilled in two halves (the state
+     carried through ``decode_step``) agrees with it prefilled whole;
  13. zamba2-2.7b's forward as in phase 11 (one mamba2 launch per Mamba
      layer, one flash_attention launch per shared-block call, on the
      tensor-core route);
@@ -94,7 +98,10 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      and replayed from a CUDA graph; each with its plan, its device time
      by kernel (torch.profiler: span states, state passing, outputs), and
      the bytes of its span states with the floor they would set at the HBM
-     rate (derived, not measured);
+     rate (derived, not measured); then the rwkv6 block's six glue kernels
+     at rwkv6-3b's forward shapes, inputs cycled through buffers larger
+     than the L2, beside their byte bounds, their plain versions and their
+     wrappers' host time a call;
  16. the README's two commands on the port: ``python -m
      repro_torch.launch.serve --arch qwen3-8b --smoke --tuned-app gemm_conv
      --tuning-db <phase 4's DB>`` must print the blocks phase 4 committed
@@ -371,6 +378,13 @@ LIMITS = {
 # atol for outputs near 0; the float32 final states at 1e-4 in both
 LIN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
 STATE_TOL = (1e-4, 1e-4)
+# the rwkv6 block's glue kernels against their plain versions: the
+# elementwise ones (decay, relu^2, channel gate) to the bit; the norms (the
+# two prologues, the head norm) differ only by their float32 sums' order,
+# so their normed values are held within one bfloat16 ulp (1e-5 in
+# float32) and everything after the norm to the plain version's bits on
+# the kernel's own normed values (_check_glue)
+GLUE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": LIN_TOL["bfloat16"]}
 # the paged engine (phases 17, 18): page and prefill-chunk sizes, and the
 # page-pressure run's pool.  The dense-equivalent pool is 512 pages (4
 # slots x 2048 rows / 16); at half of it (256) these eight requests' rows
@@ -647,6 +661,15 @@ def main() -> int:
         passes = row["passes_ms"] or "not measured (no device time)"
         print(f"    device time a call by kernel (torch.profiler): {passes}")
         rows.append(row)
+    for row in time_glue(torch, fwd_launches, rates):
+        print(f"  {row['name']:17s} {row['ms']:.4f} ms (replayed from a CUDA "
+              f"graph {row['ms_graph']:.4f} ms, {100 * row['bound_share']:.1f}"
+              f"% of its bound)  bound {row['bound_ms']:.4f} ms by bytes "
+              f"({row['bytes'] / 1e6:.1f} MB)  plain {row['plain_ms']:.4f} ms"
+              f"  host {row['host_ms']:.4f} ms a call  launches "
+              f"{row['launches']}  max_abs_err vs plain "
+              f"{row['max_abs_err']:.3g}")
+        rows.append(row)
     phase("16. the README's two commands on the port, and the quickstart")
     run_two_commands(torch)
 
@@ -692,7 +715,7 @@ def main() -> int:
     run_bench(torch, rows)
 
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
-    require(len(rows) == 8, f"{len(rows)} kernel rows, not 8")
+    require(len(rows) == 14, f"{len(rows)} kernel rows, not 14")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -1364,14 +1387,21 @@ def _compare_logits(torch, got, want) -> dict:
 
 def _launches(cfg, run: str) -> dict:
     """The launches of every kernel that one full-sequence forward
-    (``run='forward'``) or one serving prefill (``'prefill'``) of ``cfg``
-    must make: the recurrences once per layer in both; attention once per
-    layer (per shared-block call) in the forward only, since a prefill's
-    attention runs the decode path's plain einsums."""
-    from repro_torch.kernels import KERNELS
+    (``run='forward'``), one serving prefill (``'prefill'``) or one decode
+    step (``'decode'``) of ``cfg`` must make: the recurrences once per
+    layer in the forward and a prefill; rwkv6's six glue kernels once per
+    layer in all three; attention once per layer (per shared-block call)
+    in the forward only, since a prefill's attention runs the decode path's
+    plain einsums."""
+    from repro_torch.kernels import GLUE, KERNELS
     want = {k.__name__: 0 for k in KERNELS}
+    if run == "decode":
+        if cfg.family == "rwkv6":
+            want.update({k.__name__: cfg.n_layers for k in GLUE})
+        return want
     if cfg.family == "rwkv6":
         want["rwkv6"] = cfg.n_layers
+        want.update({k.__name__: cfg.n_layers for k in GLUE})
     elif cfg.family == "zamba2":
         want["mamba2"] = cfg.n_layers
         if run == "forward":
@@ -1433,6 +1463,84 @@ class _CheckedOps:
     def mamba2(self, *args, **kwargs):
         return self._both("mamba2", LIN_TOL, args, kwargs)
 
+    def _glue(self, name, args):
+        from repro_torch.kernels import ops
+        got = getattr(ops, name)(*args, implementation="cuda")
+        err = _check_glue(self.torch, name, args, got)
+        n, worst = self.worst.get(name, (0, 0.0))
+        self.worst[name] = (n + 1, max(worst, err))
+        return got
+
+    def rwkv6_time_in(self, *args):
+        return self._glue("rwkv6_time_in", args)
+
+    def rwkv6_decay(self, *args):
+        return self._glue("rwkv6_decay", args)
+
+    def rwkv6_head_out(self, *args):
+        return self._glue("rwkv6_head_out", args)
+
+    def rwkv6_channel_in(self, *args):
+        return self._glue("rwkv6_channel_in", args)
+
+    def rwkv6_relu2(self, *args):
+        return self._glue("rwkv6_relu2", args)
+
+    def rwkv6_channel_out(self, *args):
+        return self._glue("rwkv6_channel_out", args)
+
+
+def _check_glue(torch, name, args, got) -> float:
+    """One call of an rwkv6 glue kernel against its plain version on the
+    same inputs (GLUE_TOL's rule): the elementwise kernels' outputs must be
+    the plain version's bits; a norm kernel's normed values (its mixes at
+    mu = 0, its head output at a gate of exactly 1: silu(1.28125) rounds to
+    1 in bfloat16) within GLUE_TOL of the plain norm, and its outputs the
+    plain version's bits on those normed values.  Returns the largest abs
+    difference from the plain version's outputs (read, no limit)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import rwkv6_glue as G
+    want = getattr(plain, name)(*args)
+    outs = (got,) if torch.is_tensor(got) else tuple(got)
+    wants = (want,) if torch.is_tensor(want) else tuple(want)
+    require(len(outs) == len(wants) and all(
+        g.dtype == w.dtype and g.shape == w.shape
+        for g, w in zip(outs, wants)), f"{name}: outputs unlike the plain's")
+    dt = str(outs[0].dtype).removeprefix("torch.")
+    if name in ("rwkv6_time_in", "rwkv6_channel_in"):
+        time_in = name == "rwkv6_time_in"
+        *head, mu, prev = args
+        mu = mu.to(head[0].dtype)
+        normed = getattr(G, name)(*head, torch.zeros_like(mu), prev)[
+            0 if time_in else 1]
+        require(time_in or torch.equal(outs[0], wants[0]),
+                f"{name}: x + att differs from the plain version's bits")
+        _close(torch, normed, G._rms_norm(head[0] if time_in else wants[0],
+                                          head[-1]), *GLUE_TOL[dt])
+        xp = G._shift(normed, prev)
+        mixes = outs[:-1] if time_in else outs[1:-1]
+        require(all(torch.equal(m, normed + (xp - normed) * mu[i])
+                    for i, m in enumerate(mixes))
+                and torch.equal(outs[-1], normed[:, -1]),
+                f"{name}: the mixes or the carry differ from the plain "
+                f"version's bits on the kernel's normed rows")
+    elif name == "rwkv6_head_out" and dt == "bfloat16":
+        o, ln_x, g_pre = args
+        normed = G.rwkv6_head_out(o, ln_x, torch.full_like(g_pre, 1.28125))
+        _close(torch, normed, G._rms_norm(o, ln_x).reshape(normed.shape),
+               *GLUE_TOL[dt])
+        require(torch.equal(got, normed * F.silu(g_pre)), f"{name}: the "
+                f"gate differs from the plain version's bits")
+    elif name == "rwkv6_head_out":
+        _close(torch, got, want, *GLUE_TOL[dt])
+    else:
+        require(all(torch.equal(g, w) for g, w in zip(outs, wants)),
+                f"{name} differs from its plain version's bits")
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(outs, wants))
+
 
 def run_forward(torch, arch: str) -> dict:
     from repro_torch.configs import get_config
@@ -1483,10 +1591,11 @@ def run_forward(torch, arch: str) -> dict:
         t_plain = time.perf_counter() - t0
         # the model's own sensitivity: the plain forward again with other
         # chunks (summation orders), no kernel involved
-        control = make_prefill_step(cfg, impl=SimpleNamespace(
-            attention=partial(plain.attention, chunk=128),
-            rwkv6=partial(plain.rwkv6, chunk=16),
-            mamba2=partial(plain.mamba2, chunk=64)))(
+        control = make_prefill_step(cfg, impl=SimpleNamespace(**{
+            **{k: getattr(plain, k) for k in plain.__all__},
+            "attention": partial(plain.attention, chunk=128),
+            "rwkv6": partial(plain.rwkv6, chunk=16),
+            "mamba2": partial(plain.mamba2, chunk=64)}))(
                 params, {"tokens": tokens})
     lim = LIMITS[arch]
     print(f"forward 1x{FWD_TOKENS}: {t_kernel:.3f} s with the kernels, "
@@ -1576,9 +1685,12 @@ def run_serving(torch, model) -> None:
     require(all(len(r.out) == SERVE["max_new"] for r in done),
             "a request ended short of max_new")
     pre, dec = spans["serve.prefill"], spans["serve.decode_step"]
-    want = {k: n * pre[0] for k, n in _launches(cfg, "prefill").items()}
+    per_decode = _launches(cfg, "decode")
+    want = {k: n * pre[0] + per_decode[k] * dec[0]
+            for k, n in _launches(cfg, "prefill").items()}
     require(launches == want, f"serving launched {launches}, not {want} "
-            f"({pre[0]} prefills; decode steps launch no kernel)")
+            f"({pre[0]} prefills, {dec[0]} decode steps, each step "
+            f"launching {per_decode})")
     ttft = stats["ttft_s"]
     print(f"{SERVE['n']} requests (prompts {[len(p) for p in prompts]}), "
           f"{stats['generated']} tokens in {dt:.3f} s: "
@@ -2210,6 +2322,80 @@ def time_recurrences(torch, launches, rates, bf16_peak) -> tuple:
                                 r"(?:<[^>]*>)?)\(", e.key)] if m}
     require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
     return rows, span_floor
+
+
+def time_glue(torch, launches, rates) -> list[dict]:
+    """The rwkv6 block's six glue kernels at rwkv6-3b's forward shapes (1 x
+    4096 tokens, D 2560, 40 heads of 64, channel mix 8960, bfloat16), each
+    checked against its plain version, timed back to back and replayed
+    from a CUDA graph, its plain version timed, and its wrapper's host time
+    a call.  Each call takes the next of enough input sets to exceed the
+    50 MB L2, so inputs come from HBM as in the forward.  Bytes: each
+    input read once, each output written once (the weights' rows too)."""
+    from repro_torch.kernels import plain
+    from repro_torch.kernels import rwkv6_glue as G
+
+    bw, _ = rates
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    b, t, d, h, dh, f = 1, FWD_TOKENS, 2560, 40, 64, 8960
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(bf)
+
+    def sets(make, nbytes):
+        """Input sets of ``nbytes`` each, enough to exceed the L2 twice."""
+        return [make() for _ in range(max(2, -(-100_000_000 // nbytes)))]
+    act = b * t * d * 2
+    ln = rnd(d, scale=0.1, shift=1.0)
+    specs = [
+        # name, inputs maker, bytes read and written
+        ("rwkv6_time_in", lambda: (rnd(b, t, d, scale=3.0), ln,
+                                   rnd(5, d, scale=0.2, shift=0.5), None),
+         act + 10 * d * 2 + 5 * act + b * d * 2),
+        ("rwkv6_decay", lambda: (rnd(d, shift=-1.0), rnd(b, t, d), bf),
+         d * 2 + 2 * act),
+        ("rwkv6_head_out", lambda: (rnd(b, t, h, dh), rnd(h, dh, scale=0.1,
+                                                          shift=1.0),
+                                    rnd(b, t, h * dh, scale=2.0)),
+         3 * act + h * dh * 2),
+        ("rwkv6_channel_in", lambda: (rnd(b, t, d, scale=3.0), rnd(b, t, d),
+                                      ln, rnd(2, d, scale=0.2, shift=0.5),
+                                      None),
+         2 * act + 6 * d * 2 + 3 * act + b * d * 2),
+        ("rwkv6_relu2", lambda: (rnd(b, t, f, scale=3.0),), 2 * b * t * f * 2),
+        ("rwkv6_channel_out", lambda: (rnd(b, t, d), rnd(b, t, d, scale=4.0),
+                                       rnd(b, t, d)), 4 * act),
+    ]
+    rows = []
+    for name, make, nbytes in specs:
+        ins = sets(make, nbytes)
+        kern, ref = getattr(G, name), getattr(plain, name)
+        err = _check_glue(torch, name, ins[0], kern(*ins[0]))
+        turn = iter(range(1 << 30))
+
+        def call(fn):
+            return lambda: fn(*ins[next(turn) % len(ins)])
+        bound = nbytes / bw * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/rwkv6_glue.cu",
+               "replaces": "none (XLA fuses the expressions, "
+                           "src/repro/models/rwkv6.py:95-122)",
+               "launches": launches.get(name), "max_abs_err": err,
+               "ms": _time_ms(torch, call(kern)),
+               "ms_graph": _time_graph_ms(torch, call(kern),
+                                          calls=2 * len(ins)),
+               "plain_ms": _time_ms(torch, call(ref)),
+               "host_ms": _host_ms(torch, call(kern)),
+               "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+               "library": "no single PyTorch call computes it",
+               "dtype": "bfloat16", "bytes": nbytes}
+        row["bound_share"] = bound / row["ms_graph"]
+        rows.append(row)
+        del ins
+    require(all(math.isfinite(r_["ms"]) for r_ in rows), "a timing failed")
+    return rows
 
 
 # -- training and resume (phase 19) -------------------------------------------

@@ -16,6 +16,12 @@ WKV6 and SSD recurrences, each with a plain PyTorch version and dispatch in
   bank_mm                        — ``csrc/bank_mm.cu``: the DQN bank's
                                    per-slot product (port-only: a slot's
                                    bits must not depend on the bank's size)
+  rwkv6_glue                     — ``csrc/rwkv6_glue.cu``: the rwkv6
+                                   block's elementwise and row-norm work
+                                   between its matrix products, six ops
+                                   (port-only: the reference leaves it to
+                                   XLA's fusion); their plain versions are
+                                   in the same module
   plain                          — the plain versions on any device, the
                                    ops of a model run with ``impl=plain``
 
@@ -31,10 +37,11 @@ from .gemm import gemm
 from .gemv import gemv
 from .mamba2 import mamba2
 from .rwkv6 import rwkv6
+from .rwkv6_glue import GLUE
 
 INTRINSICS = (gemm, gemv, dot, conv2d)
-KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2, bank_mm)
+KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2, bank_mm, *GLUE)
 
-__all__ = ["INTRINSICS", "KERNELS", "bank_mm", "conv2d", "dot",
+__all__ = ["GLUE", "INTRINSICS", "KERNELS", "bank_mm", "conv2d", "dot",
            "flash_attention", "gemm", "gemv", "mamba2", "ops", "plain", "ref",
            "rwkv6"]

@@ -1,5 +1,5 @@
-"""Dispatch wrappers for the intrinsic kernels, attention and the
-recurrences (RWKV-6, Mamba-2).
+"""Dispatch wrappers for the intrinsic kernels, attention, the
+recurrences (RWKV-6, Mamba-2) and the rwkv6 block's fused glue.
 
 Every op takes ``implementation``: 'cuda' (the hand-written kernel; CUDA
 tensors only) or 'torch' (the plain PyTorch version; CPU tensors only).  A
@@ -30,6 +30,7 @@ from . import gemv as _gemv
 from . import mamba2 as _mamba2
 from . import ref, xla_attention, xla_linear
 from . import rwkv6 as _rwkv6
+from . import rwkv6_glue as _glue
 
 # where each implementation runs: the kernels on the card, the plain
 # versions on the CPU (the tuner's backends are these names too)
@@ -271,6 +272,61 @@ def mamba2(x, a, b, c, state=None, *, implementation: str = "cuda"):
     if not _check(implementation, *ts):
         return xla_linear.mamba2(x, a, b, c, state)
     return _mamba2.mamba2(x, a, b, c, state)
+
+
+def _glue_op(name: str, implementation: str, ts, args):
+    """One of the rwkv6 block's glue ops (``rwkv6_glue``): its kernel on
+    CUDA tensors or, for 'torch', its plain version on CPU tensors."""
+    if implementation == "cuda":
+        _no_grad_through_kernel(name, *ts)
+    if not _check(implementation, *ts):
+        return getattr(_glue, name + "_plain")(*args)
+    return getattr(_glue, name)(*args)
+
+
+def rwkv6_time_in(x, ln, mu, prev=None, *, implementation: str = "cuda"):
+    """The rwkv6 time mix's prologue: x (B, T, D), ln (D), mu (5, D), prev
+    (B, D) or None -> (xr, xk, xv, xg, xw, carry): rms_norm(x, ln), the
+    token shift (``prev`` or zeros before the first row) and the five
+    mixes, and the last normed row."""
+    ts = (x, ln, mu) if prev is None else (x, ln, mu, prev)
+    return _glue_op("rwkv6_time_in", implementation, ts, (x, ln, mu, prev))
+
+
+def rwkv6_decay(w0, lora, dtype, *, implementation: str = "cuda"):
+    """w0 (HD), lora (B, T, HD) -> -exp(clamp(float(w0 + lora), -8, 6)) in
+    ``dtype`` (lora's for the recurrence kernel, float32 for the one-token
+    decode step)."""
+    return _glue_op("rwkv6_decay", implementation, (w0, lora),
+                    (w0, lora, dtype))
+
+
+def rwkv6_head_out(out, ln_x, g_pre, *, implementation: str = "cuda"):
+    """out (B, T, H, dh), ln_x (H, dh), g_pre (B, T, H*dh) -> the per-head
+    RMS norm of out times silu(g_pre), (B, T, H*dh)."""
+    ts = (out, ln_x, g_pre)
+    return _glue_op("rwkv6_head_out", implementation, ts, ts)
+
+
+def rwkv6_channel_in(x, att, ln, mu, prev=None, *,
+                     implementation: str = "cuda"):
+    """The rwkv6 channel mix's prologue: x, att (B, T, D), ln (D), mu (2,
+    D), prev (B, D) or None -> (x + att, xk, xr, carry)."""
+    ts = (x, att, ln, mu) if prev is None else (x, att, ln, mu, prev)
+    return _glue_op("rwkv6_channel_in", implementation, ts,
+                    (x, att, ln, mu, prev))
+
+
+def rwkv6_relu2(h, *, implementation: str = "cuda"):
+    """relu(h)^2, the rwkv6 channel mix's hidden activation."""
+    return _glue_op("rwkv6_relu2", implementation, (h,), (h,))
+
+
+def rwkv6_channel_out(x, r_pre, cv, *, implementation: str = "cuda"):
+    """x + sigmoid(r_pre) * cv, all (B, T, D): the rwkv6 channel mix's
+    gate and the block's residual."""
+    ts = (x, r_pre, cv)
+    return _glue_op("rwkv6_channel_out", implementation, ts, ts)
 
 
 def tuned_matmul(a, b, app: str = "default", implementation: str = "cuda"):

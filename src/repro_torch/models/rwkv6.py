@@ -5,11 +5,16 @@ Port of ``repro/models/rwkv6.py`` with its parameter layout (blocks stacked
 on a leading axis) and its simplification: the token-shift mixing
 coefficients are static per-channel ``mu`` rather than data-dependent
 ddlerp.  Block = time-mix (the WKV recurrence through ``ops.rwkv6``, the
-CUDA kernel with ``impl='cuda'``) + channel-mix.  Cast points kept from the
-reference: the log-decay is computed in float32 and cast to x's dtype
-before the kernel, ``u`` goes in its parameter dtype, and the one-token
-decode step keeps the log-decay in float32 and runs the recurrence step as
-einsums (no kernel launch).
+CUDA kernel with ``impl='cuda'``) + channel-mix.  The elementwise and
+row-norm work between the matrix products goes through six ops
+(``ops.rwkv6_time_in``, ``rwkv6_decay``, ``rwkv6_head_out``,
+``rwkv6_channel_in``, ``rwkv6_relu2``, ``rwkv6_channel_out``: one kernel
+launch each with ``impl='cuda'``, the reference's expressions under
+``impl=kernels.plain``).  Cast points kept from the reference: the
+log-decay is computed in float32 and cast to x's dtype before the kernel,
+``u`` goes in its parameter dtype, and the one-token decode step keeps the
+log-decay in float32 and runs the recurrence step as einsums (no recurrence
+kernel).
 
 The cache is the recurrent state, O(1) in sequence length, written in
 place; the paged engine pages nothing of it (its paged cache is the dense
@@ -19,8 +24,8 @@ Under a mesh each rank runs its own heads (``specs``: ``wr``/``wk``/``wv``/
 ``wg``, ``w_lora_b`` and ``wck``/``wcr`` column-parallel, ``wo``/``wcv``
 row-parallel; ``u``, ``w0`` and the per-head group norm ``ln_x`` local to
 the heads), the token-shift mixing replicated.  The channel mix's
-receptance ``sigmoid(xr @ wcr)`` is column-split, so it is all-gathered
-before it gates the row-parallel sum.
+receptance ``xr @ wcr`` is column-split, so it is all-gathered before its
+sigmoid gates the row-parallel sum.
 """
 from __future__ import annotations
 
@@ -28,7 +33,6 @@ from functools import partial
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.distributed import local
@@ -94,61 +98,48 @@ def _block_specs(cfg: ModelConfig) -> Params:
     }
 
 
-def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
-    """Token shift: x_{t-1}, with ``prev`` as the carry for decode."""
-    if x.shape[1] == 1 and prev is not None:
-        return prev[:, None, :]
-    pad = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None, :]
-    return torch.cat([pad, x[:, :-1]], dim=1)
-
-
-def _time_mix(p: Params, cfg: ModelConfig, x, tp: int, impl,
-              wkv_state=None, shift_prev=None):
-    b, s, _ = x.shape
+def _time_mix(p: Params, cfg: ModelConfig, mixed, tp: int, impl,
+              wkv_state=None):
+    xr, xk, xv, xg, xw = mixed
+    b, s, _ = xr.shape
     dh = cfg.rwkv_head_dim
     h = _heads(cfg, tp) // local.tp_degree()       # this rank's heads
-    xp = _shift(x, shift_prev)
-    mu = p["mu"].to(x.dtype)
-    xr, xk, xv, xg, xw = (x + (xp - x) * mu[i] for i in range(5))
     col = local.column_in
 
     r = (col(xr) @ p["wr"]).reshape(b, s, h, dh)
     k = (col(xk) @ p["wk"]).reshape(b, s, h, dh)
     v = (col(xv) @ p["wv"]).reshape(b, s, h, dh)
-    g = F.silu(col(xg) @ p["wg"])
-    # data-dependent decay (Finch): log-decay = -exp(w0 + lora(x_w)) <= 0
+    g_pre = col(xg) @ p["wg"]
+    # data-dependent decay (Finch): log-decay = -exp(w0 + lora(x_w)) <= 0,
+    # in x's dtype for the kernel, float32 for the decode step
     lora = col(torch.tanh(xw @ p["w_lora_a"])) @ p["w_lora_b"]
-    logw = -torch.exp(torch.clamp((p["w0"] + lora).float(), -8.0, 6.0))
+    logw = L.op(impl, "rwkv6_decay")(
+        p["w0"], lora, torch.float32 if s == 1 else xr.dtype)
     logw = logw.reshape(b, s, h, dh)
 
     if s == 1:
-        # decode fast path: one recurrence step, no kernel launch
+        # decode fast path: one recurrence step, no recurrence kernel
         st = wkv_state if wkv_state is not None else torch.zeros(
-            (b, h, dh, dh), device=x.device)
+            (b, h, dh, dh), device=xr.device)
         r1, k1, v1 = (z[:, 0].float() for z in (r, k, v))
         kv = k1[..., :, None] * v1[..., None, :]
         u_f = p["u"].float()
         o1 = torch.einsum("bhk,bhkv->bhv", r1, st + u_f[None, :, :, None] * kv)
         new_state = torch.exp(logw[:, 0])[..., None] * st + kv
-        out = o1[:, None].to(x.dtype)
+        out = o1[:, None].to(xr.dtype)
     else:
-        out, new_state = L.op(impl, "rwkv6")(r, k, v, logw.to(x.dtype),
-                                             p["u"], wkv_state)
+        out, new_state = L.op(impl, "rwkv6")(r, k, v, logw, p["u"], wkv_state)
     # per-head group norm, then gate and project
-    out = L.rms_norm(out, p["ln_x"])
-    out = out.reshape(b, s, h * dh) * g
-    return local.row_out(out @ p["wo"]), new_state, x[:, -1]
+    out = L.op(impl, "rwkv6_head_out")(out, p["ln_x"], g_pre)
+    return local.row_out(out @ p["wo"]), new_state
 
 
-def _channel_mix(p: Params, x, shift_prev=None):
-    xp = _shift(x, shift_prev)
-    mu = p["mu_c"].to(x.dtype)
-    xk = x + (xp - x) * mu[0]
-    xr = x + (xp - x) * mu[1]
-    hidden = torch.square(F.relu(local.column_in(xk) @ p["wck"]))
-    rec = local.gather_from_model(
-        torch.sigmoid(local.column_in(xr) @ p["wcr"]), -1)
-    return rec * local.row_out(hidden @ p["wcv"]), x[:, -1]
+def _channel_mix(p: Params, xk, xr, impl):
+    """-> (the receptance's pre-activation, gathered over 'model'; the
+    projected hidden layer, summed over 'model')."""
+    hidden = L.op(impl, "rwkv6_relu2")(local.column_in(xk) @ p["wck"])
+    r_pre = local.gather_from_model(local.column_in(xr) @ p["wcr"], -1)
+    return r_pre, local.row_out(hidden @ p["wcv"])
 
 
 def _block(p: Params, cfg: ModelConfig, x, tp, impl, state=None, layer=0):
@@ -160,13 +151,16 @@ def _block(p: Params, cfg: ModelConfig, x, tp, impl, state=None, layer=0):
         rec.tracer.span(name, {"layer": layer}, x.device)
         for name in ("rwkv6.time_mix", "rwkv6.channel_mix"))
     with time_mix:
-        att, wkv, sh_t = _time_mix(p, cfg, L.rms_norm(x, p["ln1"]), tp,
-                                   impl, st.get("wkv"), st.get("shift_t"))
-        x = x + att
+        # ln1, the token shift and the five mixes; the carry is the last
+        # normed row
+        *mixed, sh_t = L.op(impl, "rwkv6_time_in")(x, p["ln1"], p["mu"],
+                                                   st.get("shift_t"))
+        att, wkv = _time_mix(p, cfg, mixed, tp, impl, st.get("wkv"))
     with channel_mix:
-        cm, sh_c = _channel_mix(p, L.rms_norm(x, p["ln2"]),
-                                st.get("shift_c"))
-        x = x + cm
+        # the residual x + att, ln2, the shift and the two mixes
+        x, xk, xr, sh_c = L.op(impl, "rwkv6_channel_in")(
+            x, att, p["ln2"], p["mu_c"], st.get("shift_c"))
+        x = L.op(impl, "rwkv6_channel_out")(x, *_channel_mix(p, xk, xr, impl))
     return x, {"wkv": wkv, "shift_t": sh_t, "shift_c": sh_c}
 
 

@@ -29,10 +29,11 @@ across chunks dominate, so a dropped inter-chunk term shows.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import (conv2d, dot, flash_attention, gemm, gemv,
-                                 mamba2, ops, ref, rwkv6, xla_attention,
-                                 xla_linear)
+from repro_torch.kernels import (GLUE, conv2d, dot, flash_attention, gemm,
+                                 gemv, mamba2, ops, plain, ref, rwkv6,
+                                 rwkv6_glue, xla_attention, xla_linear)
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.bank_mm import bank_mm, bank_mm_plain
 from repro_torch.kernels.conv2d import plan as conv_plan
@@ -835,3 +836,173 @@ def test_pending_forward_refuses_q_values_another_forward_replaced(cuda):
             want = _bank_forward(bank.state.params, torch.as_tensor(
                 x, device=cuda)).cpu().numpy()
         assert np.array_equal(got, want)
+
+
+# -- the rwkv6 block's glue (kernels/rwkv6_glue.py) ----------------------------
+# The elementwise kernels (decay, relu^2, channel gate) must give their plain
+# versions' bits.  The norm kernels differ only by their sums' order, so each
+# is split in two: its normed values (the mixes at mu = 0, the gated head
+# output at a gate of exactly 1) within one bfloat16 ulp of the plain norm
+# (LIN_TOL; 1e-5 in float32), and everything after the norm the plain
+# version's bits on the kernel's own normed values.
+GLUE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": LIN_TOL["bfloat16"]}
+# (B, T, D): the forward's rows, ragged T with a batch of two, a narrow D
+# (rows off the kernels' 16-byte vectors are refused: the CPU tests'
+# test_kernels_refuse_operands_off_the_16_byte_vectors)
+GLUE_SHAPES = [(1, 4096, 2560), (2, 1, 2560), (2, 37, 2560), (2, 131, 256)]
+
+
+def _glue_mix_check(cuda, name, shape, dtype, carried):
+    b, t, d = shape
+    dt = DTYPES[dtype]
+    time_in = name == "rwkv6_time_in"
+    x = (_on(cuda, b, t, d) * 3).to(dt)
+    ln = (1 + 0.1 * _on(cuda, d)).to(dt)
+    head = (x, ln) if time_in else (x, _on(cuda, b, t, d).to(dt), ln)
+    mu = (0.5 + 0.2 * _on(cuda, 5 if time_in else 2, d)).to(dt)
+    prev = _on(cuda, b, d).to(dt) if carried else None
+    kern = getattr(rwkv6_glue, name)
+    before = kern.launches
+    got = kern(*head, mu, prev)
+    normed = kern(*head, torch.zeros_like(mu), prev)[0 if time_in else 1]
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    want = getattr(plain, name)(*head, mu, prev)
+    assert len(got) == len(want)
+    assert all(g.dtype == dt and g.shape == w.shape for g, w in zip(got, want))
+    if not time_in:
+        assert torch.equal(got[0], want[0])             # x + att
+    _close(normed, rwkv6_glue._rms_norm(x if time_in else want[0], ln),
+           *GLUE_TOL[dtype])
+    xp = rwkv6_glue._shift(normed, prev)
+    mixes = got[:-1] if time_in else got[1:-1]
+    for i, m in enumerate(mixes):
+        assert torch.equal(m, normed + (xp - normed) * mu[i])
+    assert torch.equal(got[-1], normed[:, -1])
+    if dtype == "bfloat16":         # a norm rounds otherwise only rarely
+        assert max(float((g != w).float().mean())
+                   for g, w in zip(got, want)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("shape", GLUE_SHAPES)
+@pytest.mark.parametrize("name", ["rwkv6_time_in", "rwkv6_channel_in"])
+def test_glue_prologues_match_plain(cuda, name, shape, carried, dtype):
+    _glue_mix_check(cuda, name, shape, dtype, carried)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", GLUE_SHAPES)
+def test_glue_decay_gives_the_plain_bits(cuda, shape, dtype):
+    b, t, hd = shape
+    dt = DTYPES[dtype]
+    w0 = (_on(cuda, hd) - 1).to(dt)
+    lora = (4 * _on(cuda, b, t, hd)).to(dt)       # both clamp bounds bite
+    for out in (dt, torch.float32):
+        before = rwkv6_glue.rwkv6_decay.launches
+        got = rwkv6_glue.rwkv6_decay(w0, lora, out)
+        assert rwkv6_glue.rwkv6_decay.launches == before + 1
+        want = plain.rwkv6_decay(w0, lora, out)
+        assert got.dtype == out and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dh", [64, 16])
+@pytest.mark.parametrize("bt", [(1, 4096), (2, 1), (2, 37), (2, 131)])
+def test_glue_head_out_matches_plain(cuda, bt, dh, dtype):
+    (b, t), h, dt = bt, 2560 // dh, DTYPES[dtype]
+    o = _on(cuda, b, t, h, dh).to(dt)
+    ln_x = (1 + 0.1 * _on(cuda, h, dh)).to(dt)
+    g_pre = (2 * _on(cuda, b, t, h * dh)).to(dt)
+    before = rwkv6_glue.rwkv6_head_out.launches
+    got = rwkv6_glue.rwkv6_head_out(o, ln_x, g_pre)
+    assert rwkv6_glue.rwkv6_head_out.launches == before + 1
+    want = plain.rwkv6_head_out(o, ln_x, g_pre)
+    assert got.dtype == dt and got.shape == want.shape
+    if dtype == "float32":
+        _close(got, want, *GLUE_TOL[dtype])
+        return
+    # silu(1.28125) rounds to exactly 1 in bfloat16: the gate passes the
+    # kernel's normed values through unchanged
+    one = torch.full_like(g_pre, 1.28125)
+    assert torch.equal(F.silu(one), torch.ones_like(one))
+    normed = rwkv6_glue.rwkv6_head_out(o, ln_x, one)
+    _close(normed, rwkv6_glue._rms_norm(o, ln_x).reshape(got.shape),
+           *GLUE_TOL[dtype])
+    assert torch.equal(got, normed * F.silu(g_pre))
+    assert float((got != want).float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 4096, 8960), (2, 1, 8960),
+                                   (2, 37, 8960), (2, 131, 8960)])
+def test_glue_relu2_and_channel_out_give_the_plain_bits(cuda, shape, dtype):
+    dt = DTYPES[dtype]
+    hid = (3 * _on(cuda, *shape)).to(dt)
+    hid[..., :3] = torch.tensor([0.0, -0.0, float("nan")], dtype=dt)
+    before = rwkv6_glue.rwkv6_relu2.launches
+    got = rwkv6_glue.rwkv6_relu2(hid)
+    assert rwkv6_glue.rwkv6_relu2.launches == before + 1
+    want = plain.rwkv6_relu2(hid)
+    assert torch.equal(got.isnan(), want.isnan())       # NaN passes relu
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    b, t, _ = shape
+    x, r_pre, cv = ((s * _on(cuda, b, t, 2560)).to(dt) for s in (3, 4, 1))
+    before = rwkv6_glue.rwkv6_channel_out.launches
+    got = rwkv6_glue.rwkv6_channel_out(x, r_pre, cv)
+    assert rwkv6_glue.rwkv6_channel_out.launches == before + 1
+    assert torch.equal(got, plain.rwkv6_channel_out(x, r_pre, cv))
+
+
+@pytest.mark.cuda
+def test_glue_refuses_what_it_does_not_take(cuda):
+    x = _on(cuda, 1, 8, 64)
+    ln, mu = _on(cuda, 64), _on(cuda, 5, 64)
+    with pytest.raises(TypeError, match="one dtype"):
+        rwkv6_glue.rwkv6_time_in(x, ln.to(torch.bfloat16), mu)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_glue.rwkv6_time_in(x[:, ::2], ln, mu)
+    with pytest.raises(ValueError, match="shapes"):
+        rwkv6_glue.rwkv6_channel_out(x, x[:, :4], x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rwkv6_glue.rwkv6_relu2(_on(cuda, 2, 100).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="D <= 2560"):   # float32
+        rwkv6_glue.rwkv6_time_in(_on(cuda, 1, 2, 2564), _on(cuda, 2564),
+                                 _on(cuda, 5, 2564))
+
+
+@pytest.mark.cuda
+def test_reduced_depth_forward_launches_each_glue_kernel_once_a_layer(cuda):
+    """rwkv6-3b at full width and two layers: the forward launches every
+    glue kernel once a layer, and so does a one-token decode step (with
+    no recurrence kernel); the logits agree with the plain forward's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6 as model
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=2)
+    params = model.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, 300), device=cuda, generator=gen)
+    counted = (*GLUE, rwkv6)
+    with torch.no_grad():
+        before = [k.launches for k in counted]
+        logits = model.forward(params, cfg, {"tokens": tokens}, impl="cuda")
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(counted, before)] == \
+            [cfg.n_layers] * len(counted)
+        want = model.forward(params, cfg, {"tokens": tokens}, impl=plain)
+        cos = F.cosine_similarity(logits.float(), want.float(), dim=-1)
+        assert float(cos.min()) > 0.999
+        cache = model.init_cache(cfg, 2, 64, device="cuda")
+        before = [k.launches for k in counted]
+        model.decode_step(params, cfg, cache, tokens[:, :2].T.contiguous(),
+                          [0, 0], impl="cuda")
+        assert [k.launches - n for k, n in zip(counted, before)] == \
+            [cfg.n_layers] * len(GLUE) + [0]
