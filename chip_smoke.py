@@ -43,7 +43,8 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
   6. the flash attention kernel against its plain version on the card,
      float32 and bfloat16, at the forward's shape and at ragged ones (Sq <
      Skv and Sq > Skv, head dims 80/128/256, GQA, soft-cap, window, strided
-     views), printing the route each case took: every bfloat16 case that
+     views; zamba2-7b's 1 x 4096 tokens, 32 heads of 224 at the scale
+     112^-0.5), printing the route each case took: every bfloat16 case that
      the route rule admits must take the tensor-core route, and a
      misaligned view the SIMT route;
   7. the transformer slice's full-sequence forward: qwen3-8b at full width
@@ -71,7 +72,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      as stride-0 views, strong and weak decay (the carried state dominant),
      and streaming (two chained half calls equal one whole call); mamba2
      with b/c as stride-0 views (the Gram made once a chunk for every head)
-     gives the same bits as with b/c copied per head; each rwkv6 case also
+     gives the same bits as with b/c copied per head; mamba2 with b/c in two
+     groups at zamba2-7b's shape (B1 T4096 H112 P64 N64 G2), in one launch,
+     gives the same bits as with each group copied to its heads; each rwkv6 case also
      prints the kernel's and the plain version's max error against the
      plain version run in float64, and in bfloat16 each one's share of
      outputs rounded otherwise than the float64 result rounded once, beside
@@ -91,7 +94,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      carried through ``decode_step``) agrees with it prefilled whole;
  13. zamba2-2.7b's forward as in phase 11 (one mamba2 launch per Mamba
      layer, one flash_attention launch per shared-block call, on the
-     tensor-core route);
+     tensor-core route); then zamba2-7b's at its published widths, its
+     launches alone (81 mamba2 with b/c in two groups, 13 flash_attention
+     at D 224, on the tensor-core route);
  14. zamba2-2.7b served as in phase 12;
  15. rwkv6 and mamba2 timed at the forwards' shapes beside their bounds and
      plain versions (no single PyTorch call computes either), back to back
@@ -641,6 +646,9 @@ def main() -> int:
             rows.append(row)
         del model
         torch.cuda.empty_cache()
+    # the published Zamba2 form: B/C in two groups, two shared blocks
+    count_forward(torch, "zamba2-7b")
+    torch.cuda.empty_cache()
 
     phase("15. rwkv6 and mamba2 timed at the forwards' shapes")
     rec_rows, span_floor = time_recurrences(torch, fwd_launches, rates,
@@ -1314,6 +1322,8 @@ def check_flash(torch) -> None:
         (2, 40, 56, 4, 2, 32, dict(softcap=30.0, window=16)),
         (1, 300, 300, 16, 16, 80, dict(causal=False)),           # hubert
         (1, 1000, 1000, 16, 4, 80, {}),                           # zamba2
+        # zamba2-7b's shared attention: heads of 224, scale (224 / 2)^-0.5
+        (1, FWD_TOKENS, FWD_TOKENS, 32, 32, 224, dict(scale=112 ** -0.5)),
         (2, 200, 333, 8, 4, 256, dict(softcap=50.0, window=64)),  # gemma2
         (1, 600, 600, 8, 2, 256, {}),
         (3, 1, 777, 32, 8, 128, {}),                              # one query
@@ -1404,8 +1414,9 @@ def _launches(cfg, run: str) -> dict:
         want.update({k.__name__: cfg.n_layers for k in GLUE})
     elif cfg.family == "zamba2":
         want["mamba2"] = cfg.n_layers
-        if run == "forward":
-            want["flash_attention"] = cfg.n_layers // cfg.attn_every
+        if run == "forward":      # one call a hybrid layer (a group's)
+            want["flash_attention"] = (len(cfg.hybrid_layer_ids)
+                                       or cfg.n_layers // cfg.attn_every)
     elif run == "forward":
         want["flash_attention"] = cfg.n_layers
     return want
@@ -1650,6 +1661,49 @@ def run_forward(torch, arch: str) -> dict:
     return {"arch": arch, "cfg": cfg, "params": params, "step": step,
             "launches": launches, "forward_s": t_kernel,
             "forward_plain_s": t_plain}
+
+
+def count_forward(torch, arch: str) -> None:
+    """One full-sequence forward of ``arch`` at full width and depth over 1
+    x FWD_TOKENS tokens on the kernels: the launches of that forward alone
+    are :func:`_launches`' (zamba2-7b: one grouped mamba2 a layer, one
+    flash_attention a hybrid layer, on the tensor-core route), the logits
+    finite.  The cell ``zamba2-7b.prefill-4k`` holds its outputs to the
+    reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import family_module
+
+    cfg = get_config(arch)
+    params = family_module(cfg).init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (1, FWD_TOKENS), generator=gen,
+                           device="cuda")
+    step = make_prefill_step(cfg, impl="cuda")
+    with torch.no_grad():
+        step(params, {"tokens": tokens[:, :256]})       # warm-up
+        torch.cuda.synchronize()
+        _read_launches(reset=True)
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    routes = dict(flash_attention.route_launches)
+    want = _launches(cfg, "forward")
+    require(launches == want,
+            f"one {arch} forward launched {launches}, not {want}")
+    require(routes["tc"] == launches["flash_attention"]
+            and routes["simt"] == 0,
+            f"the bfloat16 forward's attention took the routes {routes}")
+    require(logits.shape == (1, FWD_TOKENS, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{arch} logits {tuple(logits.shape)}, or not finite")
+    print(f"{arch}: forward 1x{FWD_TOKENS} in {seconds:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, flash_attention "
+          f"routes {routes}")
+    del params, logits
 
 
 def run_serving(torch, model) -> None:
@@ -2085,7 +2139,7 @@ def _rwkv6_inputs(torch, gen, b, t, h, dk, dv, decay, state, dtype):
 
 def _mamba2_inputs(torch, gen, b, t, h, p, n, decay, state, shared, dtype):
     """b, c scaled by N^-0.5 (one group as stride-0 views over the heads
-    when ``shared``, as zamba2 passes them); weak decay a ~ -1e-3."""
+    when ``shared``); weak decay a ~ -1e-3."""
     f = lambda *shape: _rand(torch, gen, *shape, dtype=torch.float32)  # noqa
     x = f(b, t, h, p)
     a = (-1e-3 * torch.exp(0.1 * f(b, t, h)) if decay == "weak"
@@ -2239,6 +2293,47 @@ def check_recurrences(torch) -> None:
         _close(torch, h2, h, *STATE_TOL)
         print(f"  {dt:8s} T 1000 in halves of 377 and 623 vs whole: rwkv6 "
               f"max abs err {e1:.3g}, mamba2 {e2:.3g} ok")
+    # zamba2-7b's Mamba layers: b/c (B, T, G, N), head h reading group h //
+    # (H / G), in one launch (each chunk's Gram once a group, two heads of
+    # one group a pass-3 CTA), against the plain version, and the bits of
+    # each head's group copied to it (both take one span plan on an H100)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    grouped = [
+        # (B, T, H, P, N, groups, decay, state)
+        (1, FWD_TOKENS, 112, 64, 64, 2, "weak", False),
+        (1, FWD_TOKENS, 112, 64, 64, 2, "strong", True),
+        # zamba2-2.7b's one group, as its Mamba layers pass it
+        (1, FWD_TOKENS, 80, 64, 64, 1, "weak", False),
+    ]
+    sms = cuda_lib.sm_count(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix("torch.")
+        bf16 = dtype == torch.bfloat16
+        for b_, t, h, p, n, g, decay, state in grouped:
+            x, a, _, _, s0 = _mamba2_inputs(torch, gen, b_, t, h, p, n, decay,
+                                            state, True, dtype)
+            bb, cc = ((_rand(torch, gen, b_, t, g, n, dtype=torch.float32)
+                       * n ** -0.5).to(dtype) for _ in range(2))
+            ins = (x, a, bb, cc, s0)
+            before = mamba2.launches
+            err, flips, _, _ = _check_recurrence(
+                torch, mamba2, xla_linear.mamba2, ins, dt)
+            require(mamba2.launches == before + 1,
+                    "a grouped mamba2 call took more than one launch")
+            require(mamba2_plan(b_, t, h, p, n, bf16, True, sms, g).spans
+                    == mamba2_plan(b_, t, h, p, n, bf16, False, sms, h).spans,
+                    f"mamba2 span plans differ at H{h} G{g}")
+            got = mamba2(*ins)
+            own = mamba2(x, a, bb.repeat_interleave(h // g, dim=2),
+                         cc.repeat_interleave(h // g, dim=2), s0)
+            require(all(torch.equal(g_, o_) for g_, o_ in zip(got, own)),
+                    f"mamba2 grouped bits differ from per-head b/c at H{h} "
+                    f"G{g} {dt}")
+            print(f"  mamba2 {dt:8s} B{b_} T{t} H{h} P{p} N{n} b/c in {g} "
+                  f"groups, {decay} decay, state {state} (one launch; same "
+                  f"bits as per-head b/c): max abs err {err:.3g}" + (
+                      "" if flips is None else
+                      f", outputs rounded otherwise {flips:.3g}") + " ok")
 
 
 def time_recurrences(torch, launches, rates, bf16_peak) -> tuple:

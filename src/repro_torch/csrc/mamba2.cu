@@ -32,12 +32,15 @@
 // Each CTA loads the next head's (or chunk's) x by cp.async and its a into
 // registers while the current one computes.
 //
-// No CTA walks all of T.  The Gram C.B^T does not depend on the head: where b
-// and c have a head stride of 0 (zamba2 passes them so) pass 1's CTAs of the
-// first head and column block also compute each chunk's Gram, once, into a
-// buffer, and every pass-3 CTA reads it there (from L2) instead of computing
-// it; a bfloat16 pass-3 CTA then owns two heads, staging c once for both.
-// Where b and c differ by head, each pass-3 CTA computes its head's Gram.
+// No CTA walks all of T.  b and c come in G groups, head h reading group h /
+// (H / G) (zamba2-2.7b: one group every head reads; zamba2-7b: two groups of
+// 56 heads).  The Gram C.B^T depends on the group, not the head: where a
+// group holds more than one head, pass 1's CTAs of each group's first head
+// and column block also compute each chunk's Gram, once a group, into a
+// buffer, and every pass-3 CTA reads its group's there (from L2) instead of
+// computing it; a bfloat16 pass-3 CTA then owns two heads of one group,
+// staging c once for both.  Where each head is its own group, each pass-3
+// CTA computes its head's Gram.
 //
 // Intermediate bytes set this design's own floor beside the bound: the span
 // states take NS x B x H x N x P x 4 bytes, written by pass 1, read and
@@ -45,7 +48,7 @@
 // that is 84 MB, more than the 50 MB L2, ~335 MB of traffic (0.10 ms); the
 // plan's 256-token spans (S = 4, NS = 16) make it 21 MB, which stays in L2.
 // Pass 3 redoes S - 1 state updates a span that pass 1 did.  The shared
-// Grams take B x cdiv(T, 64) x 64 x 64 x 4 bytes: 1 MB at T 4096.
+// Grams take B x G x cdiv(T, 64) x 64 x 64 x 4 bytes: 1 MB a group at T 4096.
 //
 // bfloat16 ("tc"), 8 warps a CTA (4 row tiles of 16 x 2 column halves of 32;
 // x, y and h in column blocks of 64).  The state's products run on mma.sync
@@ -72,12 +75,12 @@
 // chunk (stage, cumsum, Gram or its read from the buffer, outputs, state
 // update).
 //
-// Layout: x, y (B, T, H, P); a (B, T, H); b, c (B, T, H, N); each read or
-// written through its own batch, time and head strides (the last dim of x,
-// y, b and c is contiguous); h0 and h_T (B, H, N, P) float32, contiguous, h0
-// may be null (zeros); the span states (B, H, NS, N, P), decays (B, H, NS)
-// and, where b and c are shared, Grams (B, cdiv(T, 64), 64, 64) float32
-// scratch.
+// Layout: x, y (B, T, H, P); a (B, T, H); b, c (B, T, G, N); each read or
+// written through its own batch, time and head (for b and c: group) strides
+// (the last dim of x, y, b and c is contiguous); h0 and h_T (B, H, N, P)
+// float32, contiguous, h0 may be null (zeros); the span states (B, H, NS, N,
+// P), decays (B, H, NS) and, where a group holds several heads, Grams (B, G,
+// cdiv(T, 64), 64, 64) float32 scratch.
 #include <cstdint>
 
 #include "common.cuh"
@@ -161,8 +164,8 @@ __global__ void __launch_bounds__(THREADS)
 mamba2_simt_kernel(const T* __restrict__ x, const T* __restrict__ a,
                    const T* __restrict__ bm, const T* __restrict__ cm, float* __restrict__ S,
                    float* __restrict__ dec, float* __restrict__ gram, T* __restrict__ y, int Tlen,
-                   int H, int P, int N, int span_chunks, int p_blocks, Strides xs, Strides as,
-                   Strides bs, Strides cs, Strides ys) {
+                   int H, int P, int N, int hpg, int span_chunks, int p_blocks, Strides xs,
+                   Strides as, Strides bs, Strides cs, Strides ys) {
   extern __shared__ float smem[];
   const int ld = N + 1;            // odd row stride: rows of a column hit distinct banks
   float* Xs = smem;                // L x PS   x columns of this CTA
@@ -176,15 +179,16 @@ mamba2_simt_kernel(const T* __restrict__ x, const T* __restrict__ a,
 
   const int pb = blockIdx.x % p_blocks, span = blockIdx.x / p_blocks;
   const int NS = gridDim.x / p_blocks;
-  const int p0 = pb * PS, h = blockIdx.y, b = blockIdx.z;
+  const int p0 = pb * PS, h = blockIdx.y, b = blockIdx.z, grp = h / hpg;
   const int pn = min(PS, P - p0);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int nc = (int)hasco::cdiv(Tlen, L);
   const int c0 = span * span_chunks, c1 = min(c0 + span_chunks, nc);
   float* Sj = S + (((long long)b * H + h) * NS + span) * N * P + p0;
   // who computes the Gram: pass 3 itself without a Gram buffer; with one
-  // (b and c shared by the heads), pass 1's first head and column block
-  const bool make_gram = OUT ? gram == nullptr : gram != nullptr && h == 0 && pb == 0;
+  // (b and c shared by a group's heads), pass 1's CTA of the group's first
+  // head and first column block
+  const bool make_gram = OUT ? gram == nullptr : gram != nullptr && h % hpg == 0 && pb == 0;
 
   for (int i = tid; i < N * PS; i += THREADS) {
     const int n = i / PS, p = i - n * PS;
@@ -193,8 +197,8 @@ mamba2_simt_kernel(const T* __restrict__ x, const T* __restrict__ a,
 
   const T* xb = x + (long long)b * xs.b + (long long)h * xs.h + p0;
   const T* ab = a + (long long)b * as.b + (long long)h * as.h;
-  const T* bb = bm + (long long)b * bs.b + (long long)h * bs.h;
-  const T* cb = cm + (long long)b * cs.b + (long long)h * cs.h;
+  const T* bb = bm + (long long)b * bs.b + (long long)grp * bs.h;
+  const T* cb = cm + (long long)b * cs.b + (long long)grp * cs.h;
   T* yb = y + (long long)b * ys.b + (long long)h * ys.h + p0;
 
   float decay = 1.f;
@@ -222,7 +226,8 @@ mamba2_simt_kernel(const T* __restrict__ x, const T* __restrict__ a,
       //    G[t][s] = (c_t . b_s) e^{la_t - la_s} for s <= t, else 0 (pass 3)
       //    or the buffer (pass 1); each thread a 4 x 4 block: rows 4 ty ..
       //    4 ty + 3, columns tx + 16 j
-      float* gc = gram == nullptr ? nullptr : gram + ((long long)b * nc + c) * L * L;
+      float* gc = gram == nullptr ? nullptr
+                                  : gram + (((long long)b * (H / hpg) + grp) * nc + c) * L * L;
       const int tx = tid % 16, ty = tid / 16;
       float g[4][4];
       if (make_gram) {
@@ -284,8 +289,8 @@ mamba2_simt_kernel(const T* __restrict__ x, const T* __restrict__ a,
 
 template <typename T, bool OUT>
 int launch(const void* x, const void* a, const void* b, const void* c, float* S, float* dec,
-           float* gram, void* y, int B, int Tlen, int H, int P, int N, int span_chunks, int NS,
-           const Strides* st, cudaStream_t stream) {
+           float* gram, void* y, int B, int Tlen, int H, int P, int N, int hpg, int span_chunks,
+           int NS, const Strides* st, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)L * PS + 2 * (size_t)L * (N + 1) +
                                        L * (L + 1) + (size_t)N * PS + 3 * L);
   auto kern = mamba2_simt_kernel<T, OUT>;
@@ -296,8 +301,8 @@ int launch(const void* x, const void* a, const void* b, const void* c, float* S,
   const dim3 grid((unsigned)(NS * p_blocks), (unsigned)H, (unsigned)B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), S, dec, gram, static_cast<T*>(y), Tlen, H, P, N, span_chunks,
-      p_blocks, st[0], st[1], st[2], st[3], st[4]);
+      static_cast<const T*>(c), S, dec, gram, static_cast<T*>(y), Tlen, H, P, N, hpg,
+      span_chunks, p_blocks, st[0], st[1], st[2], st[3], st[4]);
   return (int)cudaGetLastError();
 }
 
@@ -371,9 +376,9 @@ __global__ void __launch_bounds__(THREADS, min_ctas(NP, HG))
 mamba2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
                  const bf16* __restrict__ bm, const bf16* __restrict__ cm,
                  float* __restrict__ S, float* __restrict__ dec, float* __restrict__ gram,
-                 bf16* __restrict__ y, int Tlen, int H, int P, int N, int span_chunks,
-                 int p_blocks, Strides xs, Strides as, Strides bs, Strides cs, Strides ys,
-                 int vec_x, int vec_bc) {
+                 bf16* __restrict__ y, int Tlen, int H, int P, int N, int hpg,
+                 int span_chunks, int p_blocks, Strides xs, Strides as, Strides bs, Strides cs,
+                 Strides ys, int vec_x, int vec_bc) {
   constexpr int BLD = NP + 8, RT = NP / 64, KN = NP / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Cs = reinterpret_cast<bf16*>(smem_raw);  // L x BLD   c of the chunk
@@ -391,14 +396,27 @@ mamba2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
   const int pb = blockIdx.x % p_blocks, span = blockIdx.x / p_blocks;
   const int NS = gridDim.x / p_blocks;
   const int p0 = pb * PB, pn = min(PB, P - p0);
-  const int h0 = blockIdx.y * HG, b = blockIdx.z;
+  // the CTA's HG heads are of one group (hpg % HG == 0, or one group)
+  const int h0 = blockIdx.y * HG, b = blockIdx.z, grp = h0 / hpg;
   const int nc = (int)hasco::cdiv(Tlen, L);
   const int c0 = span * span_chunks, c1 = min(c0 + span_chunks, nc);
   // who computes the Gram: pass 3 itself without a Gram buffer; with one (b
-  // and c shared by every head, always so at HG 2), pass 1's first head and
-  // column block, once a chunk, and pass 3 reads it
+  // and c shared by a group's heads, always so at HG 2, whose two heads are
+  // of one group), pass 1's CTA of the group's first head and first column
+  // block, once a chunk, and pass 3 reads it
   const bool make_gram =
-      OUT ? HG == 1 && gram == nullptr : gram != nullptr && h0 == 0 && pb == 0;
+      OUT ? HG == 1 && gram == nullptr : gram != nullptr && h0 % hpg == 0 && pb == 0;
+  // the heads' group and the chunk index of its first Gram, kept in shared
+  // memory and read where used: kept in registers across the chunks (a
+  // division's results, which the compiler does not recompute) they spill
+  // pass 3, which has 128 a thread (two CTAs an SM).  Thread 0 writes them
+  // before the first barrier.
+  __shared__ int grp_s, gram_chunk0;
+  if (tid == 0) {
+    grp_s = grp;
+    gram_chunk0 = (b * (H / hpg) + grp) * nc;
+  }
+  __syncthreads();
   // this lane's ldmatrix offset into x, a [k][n] tile read transposed as B
   const int kn_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * XLD + ((lane >> 4) << 3);
 
@@ -422,9 +440,6 @@ mamba2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
 #pragma unroll
   for (int i = 0; i < HG; ++i) dprod[i] = 1.f;
 
-  // the group's b and c: one head's (HG == 1) or shared (head stride 0)
-  const bf16* bb = bm + (long long)b * bs.b + (long long)h0 * bs.h;
-  const bf16* cb = cm + (long long)b * cs.b + (long long)h0 * cs.h;
 
   // x and a of head hh at chunk c; the next head and chunk's load while
   // this one computes (x by cp.async into the other buffer where x is
@@ -446,7 +461,8 @@ mamba2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
     const bool last = c + 1 == c1;
     // the chunk's b, c (where used) and Gram (pass 3, from the buffer pass 1
     // wrote) in flight together
-    const bf16 *bt = bb + (long long)t0 * bs.t, *ct = cb + (long long)t0 * cs.t;
+    const bf16 *bt = bm + (long long)b * bs.b + (long long)grp_s * bs.h + (long long)t0 * bs.t,
+               *ct = cm + (long long)b * cs.b + (long long)grp_s * cs.h + (long long)t0 * cs.t;
     const bool need_c = OUT || make_gram;
     if (vec_bc) {
       stage_async<NP>(Bs, BLD, bt, bs.t, tn, N);
@@ -455,7 +471,7 @@ mamba2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
       stage<NP>(Bs, BLD, bt, bs.t, tn, N);
       if (need_c) stage<NP>(Cs, BLD, ct, cs.t, tn, N);
     }
-    float* gc = gram == nullptr ? nullptr : gram + ((long long)b * nc + c) * L * L;
+    float* gc = gram == nullptr ? nullptr : gram + ((long long)gram_chunk0 + c) * L * L;
     if (OUT && gc != nullptr)
 #pragma unroll 1  // rolled: unrolled, it spilled the two-head pass 3
       for (int i = tid; i < L * L / 4; i += THREADS)
@@ -662,8 +678,8 @@ mamba2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
 
 template <int NP, int HG, bool OUT>
 int launch(const void* x, const void* a, const void* b, const void* c, float* S, float* dec,
-           float* gram, void* y, int B, int Tlen, int H, int P, int N, int span_chunks, int NS,
-           const Strides* st, int vec_x, int vec_bc, cudaStream_t stream) {
+           float* gram, void* y, int B, int Tlen, int H, int P, int N, int hpg, int span_chunks,
+           int NS, const Strides* st, int vec_x, int vec_bc, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NP>();
   auto kern = mamba2_tc_kernel<NP, HG, OUT>;
   cudaError_t err =
@@ -673,7 +689,7 @@ int launch(const void* x, const void* a, const void* b, const void* c, float* S,
   const dim3 grid((unsigned)(NS * p_blocks), (unsigned)hasco::cdiv(H, HG), (unsigned)B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<const bf16*>(c), S, dec, gram, static_cast<bf16*>(y), Tlen, H, P, N,
+      static_cast<const bf16*>(c), S, dec, gram, static_cast<bf16*>(y), Tlen, H, P, N, hpg,
       span_chunks, p_blocks, st[0], st[1], st[2], st[3], st[4], vec_x, vec_bc);
   return (int)cudaGetLastError();
 }
@@ -684,25 +700,31 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
-// strides: {batch, time, head} in elements for x, a, b, c and y, in that
-// order (15 values); b and c may have a head stride of 0.  S and dec: the
-// span states (B, H, NS, N, P) and decays (B, H, NS), NS = cdiv(cdiv(T, 64),
-// span_chunks).  gram: null, or where b and c have a head stride of 0 the
-// chunks' Grams (B, cdiv(T, 64), 64, 64) float32 scratch, computed once a
-// chunk by pass 1 and read by pass 3.  heads_per_cta 2 only with the Grams
-// (the bfloat16 route), else 1.  Returns a CUDA error code.
+// strides: {batch, time, head} in elements for x, a and y, {batch, time,
+// group} for b and c, in the order x, a, b, c, y (15 values).  Head h reads
+// group h / heads_per_group of b and c (heads_per_group divides H; H itself
+// for one group, whose stride is then never read).  S and dec: the span
+// states (B, H, NS, N, P) and decays (B, H, NS), NS = cdiv(cdiv(T, 64),
+// span_chunks).  gram: null, or where a group holds several heads the
+// chunks' Grams (B, H / heads_per_group, cdiv(T, 64), 64, 64) float32
+// scratch, computed once a group and chunk by pass 1 and read by pass 3.
+// heads_per_cta 2 only with the Grams (the bfloat16 route) and where the two
+// heads of a CTA are of one group, else 1.  Returns a CUDA error code.
 extern "C" int hasco_mamba2(const void* x, const void* a, const void* b, const void* c,
                             const float* h0, void* y, float* hT, float* S, float* dec,
                             float* gram, int B, int Tlen, int H, int P, int N,
-                            const long long* strides, int span_chunks, int heads_per_cta,
-                            int dtype, void* stream) {
-  if (B < 1 || Tlen < 1 || H < 1 || P < 1 || N < 1 || N > MAX_N || span_chunks < 1)
+                            int heads_per_group, const long long* strides, int span_chunks,
+                            int heads_per_cta, int dtype, void* stream) {
+  const int hpg = heads_per_group;
+  if (B < 1 || Tlen < 1 || H < 1 || P < 1 || N < 1 || N > MAX_N || span_chunks < 1 ||
+      hpg < 1 || H % hpg != 0)
     return (int)cudaErrorInvalidValue;
   Strides st[5];
   for (int i = 0; i < 5; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const int HG = heads_per_cta;
-  const bool shared = st[2].h == 0 && st[3].h == 0;
-  if ((HG != 1 && (gram == nullptr || dtype != hasco::kBFloat16)) ||
+  const bool shared = hpg > 1;
+  if ((HG != 1 && (gram == nullptr || dtype != hasco::kBFloat16 ||
+                   (hpg % HG != 0 && hpg != H))) ||
       (gram != nullptr && !shared))
     return (int)cudaErrorInvalidValue;
   const int NS = (int)hasco::cdiv(hasco::cdiv(Tlen, L), span_chunks);
@@ -714,9 +736,9 @@ extern "C" int hasco_mamba2(const void* x, const void* a, const void* b, const v
     } else if (dtype == hasco::kFloat32) {
       if (HG != 1) return (int)cudaErrorInvalidValue;
       rc = pass == 3 ? simt::launch<float, true>(x, a, b, c, S, dec, gram, y, B, Tlen, H, P,
-                                                 N, span_chunks, NS, st, s)
+                                                 N, hpg, span_chunks, NS, st, s)
                      : simt::launch<float, false>(x, a, b, c, S, dec, gram, y, B, Tlen, H, P,
-                                                  N, span_chunks, NS, st, s);
+                                                  N, hpg, span_chunks, NS, st, s);
     } else if (dtype == hasco::kBFloat16) {
       const auto al8 = [](const Strides& z) {
         return z.b % 8 == 0 && z.t % 8 == 0 && z.h % 8 == 0;
@@ -726,8 +748,8 @@ extern "C" int hasco_mamba2(const void* x, const void* a, const void* b, const v
       // pass 1 one head a CTA (its Gram, where it makes one, is shared by
       // the buffer), pass 3 HG
 #define HASCO_TC(NP, G, OUT)                                                                 \
-  tc::launch<NP, G, OUT>(x, a, b, c, S, dec, gram, y, B, Tlen, H, P, N, span_chunks, NS, st, \
-                         vec_x, vec_bc, s)
+  tc::launch<NP, G, OUT>(x, a, b, c, S, dec, gram, y, B, Tlen, H, P, N, hpg, span_chunks, NS, \
+                         st, vec_x, vec_bc, s)
       if (pass == 1 && N <= 64)
         rc = HASCO_TC(64, 1, false);
       else if (pass == 1)

@@ -51,7 +51,7 @@ SIGNATURES = {
     "hasco_rwkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _I, _LLP, _I, _I, _P],
     "hasco_mamba2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _LLP, _I, _I, _I, _P],
+                     _I, _I, _LLP, _I, _I, _I, _P],
     "hasco_bank_mm": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                       _LL, _LL, _I, _P],
     "hasco_rwkv6_mix_in": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

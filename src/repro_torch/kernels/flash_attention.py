@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
+
 from . import cuda_lib
 from .xla_attention import attention as flash_attention_plain
 
@@ -84,6 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream().cuda_stream
     lib = cuda_lib.library()
     which = route(q, k, v)
+    obs.device_start()      # an open span times the launch, not the above
     if which == "tc":
         rc = lib.hasco_flash_attention_tc(*args, stream)
     else:

@@ -232,11 +232,23 @@ def attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     version walks 256-key chunks, as the reference's 'xla' implementation
     does."""
     kw = dict(causal=causal, softcap=softcap, window=window, scale=scale)
-    if implementation == "cuda":
-        _no_grad_through_kernel("flash_attention", q, k, v)
-    if not _check(implementation, q, k, v):
-        return xla_attention.attention(q, k, v, **kw)
-    return _flash.flash_attention(q, k, v, **kw)
+
+    def run():
+        if implementation == "cuda":
+            _no_grad_through_kernel("flash_attention", q, k, v)
+        if not _check(implementation, q, k, v):
+            return xla_attention.attention(q, k, v, **kw)
+        return _flash.flash_attention(q, k, v, **kw)
+    # a span on every call while something records (each attends over a
+    # whole sequence); the kernel's wrapper starts its device time at the
+    # launch.  Off, no context manager is entered.
+    rec = obs.recording()
+    if rec is None:
+        return run()
+    with rec.tracer.span("ops.attention", {
+            "q": q.shape, "k": k.shape, "dtype": str(q.dtype),
+            "implementation": implementation}, q.device):
+        return run()
 
 
 def rwkv6(r, k, v, w, u, state=None, *, implementation: str = "cuda"):
@@ -261,17 +273,31 @@ def rwkv6(r, k, v, w, u, state=None, *, implementation: str = "cuda"):
 
 
 def mamba2(x, a, b, c, state=None, *, implementation: str = "cuda"):
-    """Mamba-2 SSD: x (B, T, H, P), a (B, T, H), b/c (B, T, H, N) (stride 0
-    over H allowed), state (B, H, N, P) float32 or None -> (y in x's
+    """Mamba-2 SSD: x (B, T, H, P), a (B, T, H), b/c (B, T, G, N) with G
+    dividing H, head h reading group h // (H / G) (or (B, T, H, N), stride
+    0 over H allowed), state (B, H, N, P) float32 or None -> (y in x's
     dtype, final state float32), any T >= 1.  'cuda' runs the kernel
-    (chunks of 64), 'torch' the plain chunked version (chunks of 128);
-    neither chunk is a knob."""
+    (chunks of 64; one launch whatever G), 'torch' the plain chunked
+    version (chunks of 128); neither chunk is a knob."""
     ts = (x, a, b, c) + (() if state is None else (state,))
-    if implementation == "cuda":
-        _no_grad_through_kernel("mamba2", *ts)
-    if not _check(implementation, *ts):
-        return xla_linear.mamba2(x, a, b, c, state)
-    return _mamba2.mamba2(x, a, b, c, state)
+
+    def run():
+        if implementation == "cuda":
+            _no_grad_through_kernel("mamba2", *ts)
+        if not _check(implementation, *ts):
+            return xla_linear.mamba2(x, a, b, c, state)
+        return _mamba2.mamba2(x, a, b, c, state)
+    # a span on a whole sequence's call while something records (a serving
+    # step's, which carries state, records none), timed as ops.rwkv6's;
+    # off, no context manager is entered
+    rec = obs.recording() if state is None else None
+    if rec is None:
+        return run()
+    with rec.tracer.span("ops.mamba2", {
+            **{n: t.shape for n, t in zip("xabc", ts)},
+            "dtype": str(x.dtype), "implementation": implementation},
+            x.device):
+        return run()
 
 
 def _glue_op(name: str, implementation: str, ts, args):

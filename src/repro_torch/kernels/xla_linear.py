@@ -76,11 +76,14 @@ def mamba2(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
            c: torch.Tensor, state: torch.Tensor | None = None, *,
            chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD.  x: (B, T, H, P); a: (B, T, H) log-decay (<= 0); b/c:
-    (B, T, H, N), possibly stride 0 over H; state: (B, H, N, P) or None.
+    (B, T, G, N) with G dividing H, head h reading group h // (H / G)
+    ((B, T, H, N) possibly stride 0 over H); state: (B, H, N, P) or None.
     Returns (y (B, T, H, P) in x's dtype, final state (B, H, N, P) in
     float32, or both in float64 for float64 inputs)."""
     bs, t, h, p = x.shape
     n = b.shape[-1]
+    if b.shape[2] != h:      # each group's b and c for each of its heads
+        b, c = (z.repeat_interleave(h // z.shape[2], dim=2) for z in (b, c))
     ct = torch.promote_types(x.dtype, torch.float32)
     chunk = min(chunk, t)
     nc = -(-t // chunk)

@@ -47,7 +47,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.analysis.kv_sanitizer import assert_engine
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import MODEL_IDS, get_config
 from repro_torch.ft import ProgressWatchdog, inject
 from repro_torch.ft.inject import InjectedFault
 from repro_torch.launch.paging import PageAllocator, PriorityScheduler
@@ -1096,7 +1096,7 @@ def parse_mesh_flag(spec: str, device="cpu"):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-8b")
+    ap.add_argument("--arch", choices=MODEL_IDS, default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true",
                     help="a reduced same-family config")
     ap.add_argument("--device", default="cuda",

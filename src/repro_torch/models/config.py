@@ -51,6 +51,15 @@ class ModelConfig:
     ssm_expand: int = 2
     rwkv_head_dim: int = 64
     attn_every: int = 0                   # zamba2: shared attn every N blocks
+    # zamba2's published layer list (Zamba2-7B, ``models/zamba2.py``): the
+    # ids of its hybrid layers, each running a shared block on the hidden
+    # state concatenated with the embedding before its Mamba layer; () keeps
+    # the uniform ``attn_every`` groups of zamba2-2.7b as the port runs it
+    hybrid_layer_ids: tuple = ()
+    shared_blocks: int = 1                # alternating blocks (num_mem_blocks)
+    adapter_rank: int = 0                 # each hybrid call's MLP adapter
+    ssm_groups: int = 1                   # B/C groups (mamba_ngroups)
+    norm_eps: float = 1e-6                # zamba2's RMS norms
 
     # modality stub (vlm / audio): input is precomputed embeddings
     vis_tokens: int = 0                   # internvl2 patch-embedding prefix
@@ -62,6 +71,9 @@ class ModelConfig:
     kv_int8: bool = False   # int8-quantized KV cache (per-token/head scales)
 
     def __post_init__(self):
+        # a list from a JSON file: a tuple keeps the config hashable
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(1, self.n_heads))
 
@@ -86,6 +98,8 @@ class ModelConfig:
         attn = d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2
         if self.family == "rwkv6":
             attn = 6 * d * d // 1  # r,k,v,w(lora),g,o approx
+        if self.family == "zamba2" and self.hybrid_layer_ids:
+            return self._zamba2_params()
         if self.family == "zamba2":
             din = self.ssm_expand * d
             attn = d * din * 2 + din * d + 2 * din * self.ssm_state
@@ -94,6 +108,25 @@ class ModelConfig:
             mlp = self.n_experts * 3 * d * self.moe_d_ff + d * self.n_experts
         emb = self.vocab * d * 2  # embed + unembed
         return l * (attn + mlp) + emb
+
+    def _zamba2_params(self) -> int:
+        """Every parameter of zamba2's published form (``models/zamba2.py``):
+        each layer's Mamba2 mixer, the shared blocks (attention on the
+        2d-wide concatenation, the MLP), each hybrid call's linear and MLP
+        adapter, the tied embedding."""
+        d, f, r = self.d_model, self.d_ff, self.adapter_rank
+        din = self.ssm_expand * d
+        heads = din // self.ssm_head_dim
+        bc = 2 * self.ssm_groups * self.ssm_state
+        conv = din + bc
+        mamba = (d * (2 * din + bc + heads) + 4 * conv + conv + 3 * heads
+                 + din + din * d + d)
+        qkv = 2 * d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+        block = (qkv + self.n_heads * self.head_dim * d + 3 * d * f
+                 + 2 * d + d)
+        hybrid = d * d + d * r + r * 2 * f
+        return (self.n_layers * mamba + self.shared_blocks * block
+                + len(self.hybrid_layer_ids) * hybrid + self.vocab * d + d)
 
     def params_active(self) -> int:
         """Active params per token (= N for dense; routed subset for MoE)."""
@@ -153,5 +186,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.family == "zamba2":
         base.update(ssm_state=8, ssm_head_dim=16, attn_every=2,
                     n_heads=4, n_kv_heads=4)
+    if cfg.hybrid_layer_ids:      # the published form keeps its shape
+        base.update(n_layers=4, attn_every=0, hybrid_layer_ids=(1, 3),
+                    adapter_rank=4)
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -311,12 +311,15 @@ def page_table(row_map, cpos: torch.Tensor, s: int, device) -> PageTable:
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor, tp: int = 1, impl: str = "cuda",
               window: int = 0, cache: Params | None = None,
-              cache_pos=None, pages: PageTable | None = None):
+              cache_pos=None, pages: PageTable | None = None,
+              scale: float | None = None):
     """Returns (out, cache).  cache = {'k','v'}: (B, S_max, KV, hd), written
     in place at ``cache_pos`` (per slot, (B,); a scalar broadcasts); or,
     when ``pages`` is given and the leaves are 3-D, a paged physical pool
     (R + 1, KV, hd) written and read through the page table.  Ring leaves
-    stay dense, so one model can mix both."""
+    stay dense, so one model can mix both.  x may be wider than d_model
+    (``wq``'s rows say how wide: zamba2's concatenated input); ``scale``
+    multiplies the scores (default hd^-0.5)."""
     pd = cfg.padded(tp)
     t = local.tp_degree()                   # this rank's 1/t of the heads
     h, kv, hd = pd.n_heads // t, pd.n_kv_heads // t, cfg.head_dim
@@ -395,30 +398,34 @@ def attention(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             kpos = last[:, None] - torch.remainder(last[:, None] - slots,
                                                    window)
             out = _decode_attention(q, ck, cv, cfg, _to_device(last, dev),
-                                    0, kpos=_to_device(kpos, dev))
+                                    0, kpos=_to_device(kpos, dev),
+                                    scale=scale)
         else:
             out = _decode_attention(q, ck, cv, cfg, _to_device(last, dev),
-                                    window)
+                                    window, scale=scale)
     else:
         out = op(impl, "attention")(q, k, v, causal=cfg.causal,
-                                    softcap=cfg.attn_softcap, window=window)
+                                    softcap=cfg.attn_softcap, window=window,
+                                    scale=scale)
 
     out = out.reshape(x.shape[0], x.shape[1], h * hd)
     return local.row_out(out @ params["wo"]), cache
 
 
 def _decode_attention(q, ck, cv, cfg: ModelConfig, last_pos: torch.Tensor,
-                      window: int, kpos: torch.Tensor | None = None):
+                      window: int, kpos: torch.Tensor | None = None,
+                      scale: float | None = None):
     """Single/few-token query against a (partially filled) cache; positions
     beyond ``last_pos`` ((B,), per slot) are masked; ``kpos`` ((B, S_kv))
-    overrides slot positions (ring-buffer caches)."""
+    overrides slot positions (ring-buffer caches); ``scale`` (default
+    hd^-0.5) multiplies the scores."""
     b, sq, h, hd = q.shape
     skv, kvh = ck.shape[1], ck.shape[2]
     g = h // kvh
     dev = q.device
     qf = q.float().reshape(b, sq, kvh, g, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, ck.float())
-    logits = logits * hd ** -0.5
+    logits = logits * (hd ** -0.5 if scale is None else scale)
     logits = softcap(logits, cfg.attn_softcap)
     kpos = (torch.arange(skv, device=dev).expand(b, skv) if kpos is None
             else kpos.expand(b, skv))[:, None, :]           # (B, 1, Skv)

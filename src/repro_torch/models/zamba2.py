@@ -1,22 +1,53 @@
-"""Zamba2 hybrid LM (zamba2-2.7b) in PyTorch: a Mamba-2 backbone plus one
-*shared* attention block applied after every ``attn_every`` Mamba layers
-(its weights reused by every call, each call with its own KV cache).
+"""Zamba2 hybrid LMs in PyTorch: a Mamba-2 backbone with shared attention
+blocks, in two forms.
 
-Port of ``repro/models/zamba2.py`` with its parameter layout (Mamba blocks
-stacked on two leading axes, (groups, per group)) and its simplifications
-(the shared block sees the hidden state only; no per-call LoRA adapters).
+**zamba2-2.7b as the port runs it** (``attn_every``): the port of
+``repro/models/zamba2.py`` with its parameter layout (Mamba blocks stacked
+on two leading axes, (groups, per group)) and its simplifications: one
+shared block applied after every ``attn_every`` Mamba layers with residual
+adds, on the hidden state only, no per-call adapters, one B/C group.
+
+**The published form** (``hybrid_layer_ids``; Zamba2-7B, arXiv:2411.15242,
+its ``config.json`` and ``modeling_zamba2.py``): a list of ``n_layers``
+Mamba layers, stacked on one leading axis.  Before each hybrid layer j
+(the j-th id of ``hybrid_layer_ids``) shared block ``j % shared_blocks``
+runs on the hidden state x concatenated with the embedding output x0:
+
+    s = norm(concat(x, x0))            (2d wide)
+    a = attention(s)                   (q, k, v 2d -> heads x head_dim,
+                                        RoPE over the whole head, scale
+                                        (head_dim / 2)^-0.5, o -> d)
+    [g | u] = W_gu n + A_j(n),  n = norm(a)   (A_j: hybrid call j's own
+                                        rank-``adapter_rank`` adapter)
+    t = Linear_j(down(gelu(g) * u))    (exact GELU; no residual inside)
+
+and every layer computes x = x + Mamba2(norm(x + t)), t = 0 on a layer
+that is not hybrid.  The head is tied to the embedding; every RMS norm
+takes ``norm_eps``.  Each block's weights are a subtree of their own
+(``shared["0"]``, ``shared["1"]``: one block's is met 7 times a token, the
+other's 6 in Zamba2-7B), each hybrid call's linear and adapter are stacked
+on a leading axis (``hybrid``).
+
 Mamba-2 mixer per layer: in_proj -> [z | x | B | C | dt], a short causal
 depthwise conv on (x | B | C) with its carried tail, the SSD recurrence
 through ``ops.mamba2`` (the CUDA kernel with ``impl='cuda'``) with per-head
-scalar decay a = dt * (-exp(A_log)), the D skip, silu(z) gating, RMS norm,
-out_proj.  B and C (one group) reach the kernel as stride-0 ``expand``
-views over the head axis, where the reference materialises them per head.
-The shared block reuses ``layers.attention`` / ``layers.mlp``: in the
-full-sequence forward its attention is the flash kernel at head_dim 80.
+scalar decay a = dt * (-exp(A_log)), the D skip, silu(z) gating, RMS norm
+(over each of ``ssm_groups`` groups of the inner width), out_proj.  B and
+C come in ``ssm_groups`` groups of ``ssm_state``, head h reading group h //
+(heads / groups), and reach the kernel as (B, S, G, N) in one launch a
+layer, one group (zamba2-2.7b's) too: every head reads it, where the
+reference materialises it per head.  The shared block
+reuses ``layers.attention``: in the full-sequence forward its attention is
+the flash kernel (head_dim 80 in zamba2-2.7b, 224 in zamba2-7b).
 
 Decode carries (conv tail, SSD state) per layer and the KV cache per
 shared-block call, written in place.  The paged cache pools the
 shared-attention KV and keeps the conv/SSD state per slot.
+
+Spans (``repro_torch.obs``, on the whole-sequence forward only):
+``zamba2.mamba`` around each Mamba layer (norm, mixer, residual) and
+``zamba2.shared`` around each shared-block call; the counters
+``zamba2.mamba_layers`` and ``zamba2.shared_calls`` count them.
 
 Under a mesh each rank runs its own SSD heads.  ``in_proj``'s columns
 ``[z | x | B | C | dt]`` and the conv's channels ``[x | B | C]`` are
@@ -27,17 +58,21 @@ replicated computation that each rank reads for its own heads only, so
 their gradient is summed over 'model' where they enter the SSD; and the
 gated RMS norm over the whole ``hp`` sums its squares over 'model'.  Under
 FSDP (``local.take``) ``in_proj`` is gathered over 'data' on its rows,
-which the segments on its columns leave alone.
+which the segments on its columns leave alone.  The published form (B/C
+groups, the blocks' 2d-wide input, the adapters) has no sharding rule: it
+raises under a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import local
+from repro_torch import obs
+from repro_torch.distributed import context, local
 from repro_torch.distributed.sharding import FSDP, TP, P, spec_map
 
 from . import layers as L
@@ -58,10 +93,38 @@ def _n_groups(cfg: ModelConfig) -> int:
     return max(1, cfg.n_layers // max(1, cfg.attn_every))
 
 
+def _published(cfg: ModelConfig) -> bool:
+    return bool(cfg.hybrid_layer_ids)
+
+
+def _n_calls(cfg: ModelConfig) -> int:
+    """Shared-block calls a forward: one per hybrid layer (published form)
+    or per group."""
+    return len(cfg.hybrid_layer_ids) if _published(cfg) else _n_groups(cfg)
+
+
+def _layer_shape(cfg: ModelConfig) -> tuple[int, ...]:
+    """Leading axes of the stacked Mamba layers (and their states)."""
+    if _published(cfg):
+        return (cfg.n_layers,)
+    g = _n_groups(cfg)
+    return (g, cfg.n_layers // g)
+
+
+def _no_mesh(cfg: ModelConfig) -> None:
+    """The published form has no sharding rule: B/C groups (a rank would
+    read some groups' heads only), the blocks' 2d-wide input, the adapters."""
+    if _published(cfg) or cfg.ssm_groups > 1:
+        raise ValueError(
+            f"{cfg.name}: {cfg.ssm_groups} B/C groups and the published "
+            f"shared blocks have no sharding rule; run it without a mesh")
+
+
 def _mamba_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
     d = cfg.d_model
     _, h, n = _dims(cfg, tp)
     hp = h * cfg.ssm_head_dim              # padded inner width
+    n = cfg.ssm_groups * n                 # B (and C) columns, every group
     conv_dim = hp + 2 * n
     logical_h = (cfg.ssm_expand * d) // cfg.ssm_head_dim
     normal = partial(L._normal, gen, dtype=dtype, device=device)
@@ -98,6 +161,8 @@ def compute_segments(cfg: ModelConfig, tp: int) -> dict:
     """The concatenated dims (``distributed.local``): for each leaf path,
     the dim and its segments ``(length, split over 'model')``.  The conv
     tail of the cache runs over the conv's channels."""
+    if tp > 1:
+        _no_mesh(cfg)
     _, h, n = _dims(cfg, tp)
     hp = h * cfg.ssm_head_dim
     conv = (-1, [(hp, True), (n, False), (n, False)])
@@ -108,12 +173,18 @@ def compute_segments(cfg: ModelConfig, tp: int) -> dict:
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
-    """``rms_norm(y * silu(z), w)`` over the whole ``hp`` when each rank
-    holds ``1/T`` of it: the sum of squares is summed over 'model'."""
+                eps: float = 1e-6, groups: int = 1) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)`` over each of ``groups`` equal parts of
+    ``hp`` (``Zamba2RMSNormGated``); with one group, over the whole ``hp``
+    when each rank holds ``1/T`` of it: the sum of squares is summed over
+    'model'."""
     g = y * F.silu(z)
+    if groups > 1:
+        parts = (*g.shape[:-1], groups, g.shape[-1] // groups)
+        return L.rms_norm(g.reshape(parts), w.reshape(parts[-2:]),
+                          eps=eps).reshape(g.shape)
     if local.tp_group() is None:
-        return L.rms_norm(g, w)
+        return L.rms_norm(g, w, eps=eps)
     gf = g.float()
     ss = local.reduce_partial(torch.sum(gf * gf, dim=-1, keepdim=True))
     var = ss / (gf.shape[-1] * local.tp_degree())
@@ -134,15 +205,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
-                 state: Params | None = None):
+                 state: Params | None = None, t=None):
+    """x + Mamba2(norm(x + t)) (t: a hybrid call's output, else None) ->
+    (x, new conv tail and SSD state)."""
     bsz, s, _ = x.shape
     _, h, n = _dims(cfg, tp)
     h //= local.tp_degree()                           # this rank's heads
     ph = cfg.ssm_head_dim
     hp = h * ph
+    grp = cfg.ssm_groups
+    gn = grp * n                                      # B (and C) columns
     st = state or {}
 
-    xn = L.rms_norm(x, p["ln"])
+    xn = L.rms_norm(x if t is None else x + t, p["ln"], eps=cfg.norm_eps)
     w = p["in_proj"]
     if local.tp_group() is None:
         zxbcdt = xn @ w
@@ -152,21 +227,19 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
         zxbcdt = torch.cat([zx[..., :2 * hp], xn @ w[:, 2 * hp:-h],
                             zx[..., 2 * hp:]], -1)
     z = zxbcdt[..., :hp]
-    xbc = zxbcdt[..., hp:hp + hp + 2 * n]
+    xbc = zxbcdt[..., hp:hp + hp + 2 * gn]
     dt_raw = zxbcdt[..., -h:]
 
     xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                  st.get("conv"))
     xs = xbc[..., :hp].reshape(bsz, s, h, ph)
-    # (B, S, N), one group; read by this rank's heads only
-    bmat = local.copy_to_model(xbc[..., hp:hp + n])
-    cmat = local.copy_to_model(xbc[..., hp + n:])
+    # (B, S, G, N); one group is read by this rank's heads only
+    bmat = local.copy_to_model(xbc[..., hp:hp + gn]).reshape(bsz, s, grp, n)
+    cmat = local.copy_to_model(xbc[..., hp + gn:]).reshape(bsz, s, grp, n)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     log_decay = -dt * torch.exp(p["a_log"])           # (B, S, H) <= 0
     x_scaled = (xs.float() * dt[..., None]).to(x.dtype)
-    bh = bmat[:, :, None, :].expand(bsz, s, h, n)     # stride 0 over heads
-    ch = cmat[:, :, None, :].expand(bsz, s, h, n)
 
     if s == 1:
         # decode fast path: one SSD recurrence step
@@ -174,24 +247,27 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
         if h0 is None:
             h0 = torch.zeros((bsz, h, n, ph), device=x.device)
         xf = x_scaled[:, 0].float()
-        bf, cf = bh[:, 0].float(), ch[:, 0].float()
+        bf, cf = (z[:, 0].float().repeat_interleave(h // z.shape[2], dim=1)
+                  for z in (bmat, cmat))
         h1 = torch.exp(log_decay[:, 0])[..., None, None] * h0 \
             + bf[..., :, None] * xf[..., None, :]
         y = torch.einsum("bhn,bhnp->bhp", cf, h1)[:, None].to(x.dtype)
         new_ssd = h1
     else:
         y, new_ssd = L.op(impl, "mamba2")(x_scaled, log_decay.to(x.dtype),
-                                          bh, ch, st.get("ssd"))
+                                          bmat, cmat, st.get("ssd"))
 
     y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, hp)
-    y = _gated_norm(y, z, p["norm"])
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps, grp)
     return x + local.row_out(y @ p["out_proj"]), {"conv": new_tail,
                                                   "ssd": new_ssd}
 
 
 def _shared_attn(shared: Params, cfg: ModelConfig, x, *, positions, tp,
                  impl, cache=None, cache_pos=None, pages=None):
+    """zamba2-2.7b's shared block as the port runs it: x + attention, then
+    + MLP, both on the hidden state."""
     h = L.rms_norm(x, shared["ln_attn"])
     att, _ = L.attention(shared["attn"], cfg, h, positions=positions, tp=tp,
                          impl=impl, cache=cache, cache_pos=cache_pos,
@@ -200,9 +276,57 @@ def _shared_attn(shared: Params, cfg: ModelConfig, x, *, positions, tp,
     return x + L.mlp(shared["mlp"], L.rms_norm(x, shared["ln_mlp"]))
 
 
+def _addmm_(out: torch.Tensor, a: torch.Tensor, w: torch.Tensor):
+    """out += a @ w in place, one product over every leading dim."""
+    out.view(-1, out.shape[-1]).addmm_(a.reshape(-1, a.shape[-1]), w)
+    return out
+
+
+def _hybrid_call(blk: Params, hyb: Params, cfg: ModelConfig, x, x0, *,
+                 positions, tp, impl, cache=None, cache_pos=None,
+                 pages=None):
+    """The published form's shared block at one hybrid layer -> t, which
+    joins that Mamba layer's normed input: attention on the normed
+    concatenation of x and the embedding output x0, the MLP with this
+    call's adapter on [gate | up], this call's linear."""
+    eps = cfg.norm_eps
+    s = L.rms_norm(torch.cat([x, x0], dim=-1), blk["ln_attn"], eps=eps)
+    att, _ = L.attention(blk["attn"], cfg, s, positions=positions, tp=tp,
+                         impl=impl, cache=cache, cache_pos=cache_pos,
+                         pages=pages, scale=(cfg.head_dim / 2) ** -0.5)
+    n = L.rms_norm(att, blk["ln_mlp"], eps=eps)
+    mlp = blk["mlp"]
+    low = n @ hyb["adapter_down"]
+    gate = _addmm_(n @ mlp["w_gate"], low, hyb["adapter_gate"])
+    up = _addmm_(n @ mlp["w_up"], low, hyb["adapter_up"])
+    return (F.gelu(gate) * up) @ mlp["w_down"] @ hyb["linear"]
+
+
 # ---------------------------------------------------------------------------
-# Model: groups of (attn_every Mamba blocks) + one shared attention block
+# Model: the Mamba layers and the shared blocks between them
 # ---------------------------------------------------------------------------
+
+def _shared_init(gen, cfg: ModelConfig, tp: int, dtype, device) -> Params:
+    """One shared block of the published form: its attention reads the
+    2d-wide concatenation and writes the d-wide residual."""
+    d = cfg.d_model
+    ones = partial(torch.ones, dtype=dtype, device=device)
+    attn = L.attn_init(gen, dataclasses.replace(cfg, d_model=2 * d), tp,
+                       dtype, device)
+    attn["wo"] = attn["wo"][:, :d].contiguous()     # (heads x hd, d)
+    return {"ln_attn": ones((2 * d,)), "ln_mlp": ones((d,)), "attn": attn,
+            "mlp": L.mlp_init(gen, cfg, dtype, device)}
+
+
+def _hybrid_init(gen, cfg: ModelConfig, dtype, device) -> Params:
+    """One hybrid call's own weights: its linear and its MLP adapter."""
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    normal = partial(L._normal, gen, dtype=dtype, device=device)
+    return {"linear": normal((d, d), d ** -0.5),
+            "adapter_down": normal((d, r), d ** -0.5),
+            "adapter_gate": normal((r, f), r ** -0.5),
+            "adapter_up": normal((r, f), r ** -0.5)}
+
 
 def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
          device="cuda") -> Params:
@@ -212,10 +336,19 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
     device = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    g = _n_groups(cfg)
-    layers = stacked_init((g, cfg.n_layers // g),
+    layers = stacked_init(_layer_shape(cfg),
                           partial(_mamba_init, gen, cfg, tp, dtype, device))
     ones = partial(torch.ones, (cfg.d_model,), dtype=dtype, device=device)
+    if _published(cfg):
+        return {
+            "embed": L.embed_init(gen, cfg, tp, dtype, device),
+            "layers": layers,                   # (n_layers, ...)
+            "shared": {str(k): _shared_init(gen, cfg, tp, dtype, device)
+                       for k in range(cfg.shared_blocks)},
+            "hybrid": stacked_init((_n_calls(cfg),), partial(
+                _hybrid_init, gen, cfg, dtype, device)),
+            "final_norm": ones(),               # the head: the embedding
+        }
     shared = {"ln_attn": ones(), "ln_mlp": ones(),
               "attn": L.attn_init(gen, cfg, tp, dtype, device),
               "mlp": L.mlp_init(gen, cfg, dtype, device)}
@@ -230,35 +363,88 @@ def init(cfg: ModelConfig, seed: int = 0, tp: int = 1,
 
 
 def specs(cfg: ModelConfig) -> Params:
-    blk = spec_map(lambda s: P(None, None, *s), _mamba_specs())
+    lead = len(_layer_shape(cfg))
+    blk = spec_map(lambda s: P(*(None,) * lead, *s), _mamba_specs())
     shared = {"ln_attn": P(None), "ln_mlp": P(None),
               "attn": L.attn_specs(cfg), "mlp": L.mlp_specs()}
-    return {"embed": L.embed_specs(), "layers": blk, "shared": shared,
-            "final_norm": P(None), "head": L.embed_specs()}
+    if not _published(cfg):
+        return {"embed": L.embed_specs(), "layers": blk, "shared": shared,
+                "final_norm": P(None), "head": L.embed_specs()}
+    # replicated: no mesh runs the published form (_no_mesh)
+    hybrid = P(None, None, None)
+    return {"embed": L.embed_specs(), "layers": blk,
+            "shared": {str(k): shared for k in range(cfg.shared_blocks)},
+            "hybrid": dict.fromkeys(("linear", "adapter_down", "adapter_gate",
+                                     "adapter_up"), hybrid),
+            "final_norm": P(None)}
+
+
+def _spanned(cfg: ModelConfig, device, cache):
+    """-> ``spanned(name, i, fn, *args, **kw)``: ``fn(*args, **kw)`` inside
+    span ``name`` (layer ``i``) on the whole-sequence forward while
+    something records; else ``fn`` alone, with no context manager entered
+    (a serving step, which carries a cache, records none).  Counts the
+    forward's Mamba layers and shared-block calls."""
+    rec = obs.recording() if cache is None else None
+    if rec is None:
+        return lambda name, i, fn, *args, **kw: fn(*args, **kw)
+    rec.metrics.counter("zamba2.mamba_layers").inc(cfg.n_layers)
+    rec.metrics.counter("zamba2.shared_calls").inc(_n_calls(cfg))
+
+    def spanned(name, i, fn, *args, **kw):
+        with rec.tracer.span(name, {"layer": i}, device):
+            return fn(*args, **kw)
+    return spanned
 
 
 def _run(params: Params, cfg: ModelConfig, x, *, positions, tp, impl,
          cache: Params | None = None, cache_pos=None, pages=None):
-    """The groups in order: each group's Mamba blocks, then the shared
-    block; with a cache, every state is read and written in place."""
-    g = _n_groups(cfg)
-    per = cfg.n_layers // g
+    """The layers in order; with a cache, every state is read and written
+    in place."""
+    if context.current_mesh() is not None:
+        _no_mesh(cfg)
+    spanned = _spanned(cfg, x.device, cache)
+    attn_kw = dict(positions=positions, tp=tp, impl=impl, cache_pos=cache_pos,
+                   pages=pages)
+
+    def mamba(x, idx, t=None):
+        st = None if cache is None else layer(
+            {"conv": cache["conv"], "ssd": cache["ssd"]}, *idx)
+        x, new = _mamba_block(local.take(params, ("layers",), idx), cfg, x,
+                              tp, impl, state=st, t=t)
+        if st is not None:
+            for name, v in new.items():
+                st[name].copy_(v)
+        return x
+
+    def kv(j):
+        return None if cache is None else layer(cache["attn"], j)
+
+    if _published(cfg):
+        x0 = x
+        calls = {lid: j for j, lid in enumerate(cfg.hybrid_layer_ids)}
+        for i in range(cfg.n_layers):
+            t = None
+            if i in calls:
+                j = calls[i]
+                t = spanned(
+                    "zamba2.shared", j, _hybrid_call,
+                    local.take(params, ("shared",
+                                        str(j % cfg.shared_blocks))),
+                    local.take(params, ("hybrid",), (j,)), cfg, x, x0,
+                    cache=kv(j), **attn_kw)
+            x = spanned("zamba2.mamba", i, mamba, x, (i,), t)
+        x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+        return L.unembed(local.take(params, ("embed",)), x, cfg.vocab)
+
+    g, per = _layer_shape(cfg)
     for gi in range(g):
         for li in range(per):
-            st = None if cache is None else layer(
-                {"conv": cache["conv"], "ssd": cache["ssd"]}, gi, li)
-            x, new = _mamba_block(local.take(params, ("layers",),
-                                             (gi, li)), cfg, x, tp, impl,
-                                  state=st)
-            if st is not None:
-                for name, t in new.items():
-                    st[name].copy_(t)
+            x = spanned("zamba2.mamba", gi * per + li, mamba, x, (gi, li))
         # the shared block's weights, gathered again at every call
-        x = _shared_attn(local.take(params, ("shared",)), cfg, x,
-                         positions=positions, tp=tp, impl=impl,
-                         cache=None if cache is None
-                         else layer(cache["attn"], gi),
-                         cache_pos=cache_pos, pages=pages)
+        x = spanned("zamba2.shared", gi, _shared_attn,
+                    local.take(params, ("shared",)), cfg, x, cache=kv(gi),
+                    **attn_kw)
     x = L.rms_norm(x, params["final_norm"])
     return L.unembed(local.take(params, ("head",)), x, cfg.vocab)
 
@@ -282,15 +468,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
     dtype = dtype or getattr(torch, cfg.dtype)
     _, h, n = _dims(cfg, tp)
     hp = h * cfg.ssm_head_dim
-    g = _n_groups(cfg)
-    per = cfg.n_layers // g
+    lead = _layer_shape(cfg)
     return {
-        "conv": torch.zeros((g, per, batch, CONV_K - 1, hp + 2 * n),
+        "conv": torch.zeros((*lead, batch, CONV_K - 1,
+                             hp + 2 * cfg.ssm_groups * n),
                             dtype=dtype, device=device),
-        "ssd": torch.zeros((g, per, batch, h, n, cfg.ssm_head_dim),
+        "ssd": torch.zeros((*lead, batch, h, n, cfg.ssm_head_dim),
                            device=device),
-        "attn": tree_map(lambda x: torch.zeros((g, *x.shape), dtype=x.dtype,
-                                               device=device),
+        "attn": tree_map(lambda x: torch.zeros((_n_calls(cfg), *x.shape),
+                                               dtype=x.dtype, device=device),
                          L.init_kv_cache(cfg, batch, max_seq, tp, dtype,
                                          device="meta")),
     }
@@ -298,8 +484,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
 
 def cache_specs(cfg: ModelConfig) -> Params:
     kv = spec_map(lambda s: P(None, *s), L.kv_cache_specs(cfg))
-    return {"conv": P(None, None, L.BATCH_AXES, None, TP),
-            "ssd": P(None, None, L.BATCH_AXES, TP, None, None),
+    lead = (None,) * len(_layer_shape(cfg))
+    return {"conv": P(*lead, L.BATCH_AXES, None, TP),
+            "ssd": P(*lead, L.BATCH_AXES, TP, None, None),
             "attn": kv}
 
 
@@ -323,18 +510,19 @@ def pack_slot_cache(cfg: ModelConfig, pcache: Params, max_seq: int,
 def cache_slot_axes(cfg: ModelConfig) -> Params:
     """Batch(=slot)-axis index of every cache leaf (serving scatter map)."""
     names = ("k", "v", "k_scale", "v_scale") if cfg.kv_int8 else ("k", "v")
-    return {"conv": 2, "ssd": 2, "attn": {name: 1 for name in names}}
+    lead = len(_layer_shape(cfg))
+    return {"conv": lead, "ssd": lead, "attn": {name: 1 for name in names}}
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
                      tp: int = 1, dtype=None, device="cuda") -> Params:
     """Paged serving cache: conv/SSD states stay per slot (O(1) in sequence
     length, nothing to page); the shared-attention KV moves into one
-    physical pool of ``rows`` rows (plus the scratch row) per group."""
+    physical pool of ``rows`` rows (plus the scratch row) per call."""
     cache = init_cache(cfg, slots, 0, tp, dtype, device)
     dtype = dtype or getattr(torch, cfg.dtype)
     cache["attn"] = tree_map(
-        lambda x: torch.zeros((_n_groups(cfg), *x.shape), dtype=x.dtype,
+        lambda x: torch.zeros((_n_calls(cfg), *x.shape), dtype=x.dtype,
                               device=device),
         L.init_paged_kv_pool(cfg, rows, tp, dtype, device="meta"))
     return cache
@@ -342,12 +530,10 @@ def init_paged_cache(cfg: ModelConfig, slots: int, rows: int, max_seq: int,
 
 def paged_cache_specs(cfg: ModelConfig) -> Params:
     """Specs mirroring :func:`init_paged_cache`: per-slot conv/SSD states
-    keep their dense specs; the pooled attention KV gains the group axis
+    keep their dense specs; the pooled attention KV gains the call axis
     over the kv-pool specs."""
     pool = spec_map(lambda s: P(None, *s), L.paged_kv_pool_specs(cfg))
-    return {"conv": P(None, None, L.BATCH_AXES, None, TP),
-            "ssd": P(None, None, L.BATCH_AXES, TP, None, None),
-            "attn": pool}
+    return {**cache_specs(cfg), "attn": pool}
 
 
 def paged_slot_axes(cfg: ModelConfig) -> Params:

@@ -339,6 +339,9 @@ TC_CASES = [
     (1, 256, 256, 4, 2, 128, dict(softcap=30.0, causal=False)),
     (1, 100, 170, 4, 2, 256, dict(softcap=50.0, window=33)),
     (1, 300, 300, 4, 2, 256, {}),
+    # zamba2-7b's shared attention: heads of 224, scale (224 / 2)^-0.5
+    (1, 333, 333, 4, 4, 224, dict(scale=112 ** -0.5)),
+    (1, 4096, 4096, 32, 32, 224, dict(scale=112 ** -0.5)),
 ]
 
 
@@ -642,6 +645,48 @@ def test_rwkv6_kernel_matches_plain_over_spans_and_column_blocks(cuda, dtype,
                                                                  case):
     ins = _rwkv6_inputs(cuda, *case, DTYPES[dtype])
     _check_recurrence(rwkv6, xla_linear.rwkv6, ins, dtype)
+
+
+MAMBA2_GROUPED_CASES = [
+    # (B, T, H, P, N, groups, decay, state): zamba2-7b's forward (two
+    # groups of 56 heads, two heads a pass-3 CTA); an odd number of heads
+    # a group (one head a CTA, the Grams still shared); four groups; one
+    # token; a head a group
+    (1, 4096, 112, 64, 64, 2, "weak", False),
+    (2, 300, 6, 64, 64, 2, "strong", True),
+    (1, 1000, 8, 32, 16, 4, "weak", True),
+    (2, 1, 4, 64, 64, 2, "strong", True),
+    (1, 200, 4, 64, 128, 4, "weak", False),
+]
+
+
+def _grouped_inputs(dev, b, t, h, p, n, g, decay, state, dtype):
+    x, a, _, _, s0 = _mamba2_inputs(dev, b, t, h, p, n, decay, state, True,
+                                    dtype)
+    bb, cc = ((_on(dev, b, t, g, n) * n ** -0.5).to(dtype) for _ in range(2))
+    return x, a, bb, cc, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA2_GROUPED_CASES)
+def test_mamba2_grouped_kernel_matches_plain(cuda, dtype, case):
+    """b/c (B, T, G, N), head h reading group h // (H / G), in one launch,
+    against the plain version; and each head's bits as with its group's b
+    and c copied to it (where both take one span plan)."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.mamba2 import plan
+    ins = _grouped_inputs(cuda, *case, DTYPES[dtype])
+    _check_recurrence(mamba2, xla_linear.mamba2, ins, dtype)
+    b_, t, h, p, n, g = case[:6]
+    sms, bf16 = cuda_lib.sm_count(cuda.index), dtype == "bfloat16"
+    if plan(b_, t, h, p, n, bf16, True, sms, g).spans == \
+            plan(b_, t, h, p, n, bf16, False, sms, h).spans:
+        x, a, bb, cc, s0 = ins
+        own = mamba2(x, a, bb.repeat_interleave(h // g, dim=2),
+                     cc.repeat_interleave(h // g, dim=2), s0)
+        for got, want in zip(mamba2(*ins), own):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -111,7 +111,8 @@ def test_mamba2_matches_the_reference(dims, state, decay):
 
 
 def test_mamba2_reads_b_and_c_shared_across_heads():
-    """zamba2 passes one group of b/c as stride-0 views over the heads."""
+    """One group of b/c as stride-0 views over the heads, read as each
+    head's own."""
     x, a, bb, cc, s0 = _mamba2_inputs(2, 70, 4, 8, 8, "weak", True)
     tx, ta, ts = _torch(x, a, s0)
     b1 = torch.from_numpy(bb[:, :, :1]).expand(2, 70, 4, 8)

@@ -114,7 +114,7 @@ def _inputs(b, t, h, p, n, decay, state, shared, seed):
     s0 = f(b, h, n, p) * n ** -0.5 if state else None
     bf = lambda z: torch.from_numpy(z).bfloat16()  # noqa: E731
     x, a, bb, cc = bf(x), bf(a), bf(bb), bf(cc)
-    if shared:       # stride-0 views over the heads, as zamba2 passes them
+    if shared:       # stride-0 views over the heads, one group for all
         bb, cc = (z[:, :, :1].expand(b, t, h, n) for z in (bb, cc))
     return x, a, bb, cc, None if s0 is None else torch.from_numpy(s0)
 

@@ -20,7 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.launch.steps import make_prefill_step
-from repro_torch.models import reduced, rwkv6
+from repro_torch.models import reduced, rwkv6, zamba2
 from repro_torch.obs.export import snapshot, validate_telemetry
 from repro_torch.obs.trace import ARGS, DEPTH, DUR, NAME, PH, TS
 
@@ -139,6 +139,54 @@ def test_logits_are_the_same_off_under_a_session_and_profiled(model,
     doc = snapshot(st.tracer, st.metrics)
     assert validate_telemetry(doc) == []
     assert doc["metrics"]["counters"]["prefill.forwards"]["value"] == 2
+
+
+def test_a_zamba2_forward_records_its_layers_and_kernel_ops(tmp_path):
+    """zamba2's published form (small): a profiled forward records one
+    ``zamba2.mamba`` span a layer around its ``ops.mamba2`` span and one
+    ``zamba2.shared`` span a hybrid call around its ``ops.attention``
+    span, and counts both; unprofiled, nothing records."""
+    obs.disable()
+    cfg = reduced(get_config("zamba2-7b"), dtype="float32")
+    params = zamba2.init(cfg, 0, device="cpu")
+    step = make_prefill_step(cfg, impl="torch")
+    tokens = torch.randint(0, cfg.vocab, (1, 20),
+                           generator=torch.Generator().manual_seed(7))
+    try:
+        with torch.no_grad():
+            off = step(params, {"tokens": tokens})
+        assert obs.profiled() is None and obs.state() is None
+        on, _ = _forward_profiled(lambda: step(params, {"tokens": tokens}),
+                                  tmp_path)
+        assert torch.equal(off, on)
+        st = obs.profiled()
+        evs = st.tracer.events()
+        calls = len(cfg.hybrid_layer_ids)
+        assert Counter(e[NAME] for e in evs) == {
+            "prefill.forward": 1, "zamba2.mamba": cfg.n_layers,
+            "ops.mamba2": cfg.n_layers, "zamba2.shared": calls,
+            "ops.attention": calls}
+        depth = {"prefill.forward": 0, "zamba2.mamba": 1,
+                 "zamba2.shared": 1, "ops.mamba2": 2, "ops.attention": 2}
+        assert all(e[DEPTH] == depth[e[NAME]] for e in evs)
+        spans = sorted(evs, key=lambda e: e[TS])
+        for e in spans:
+            if e[NAME].startswith("ops."):
+                parent = max((p for p in spans if p[DEPTH] == 1
+                              and p[TS] <= e[TS]), key=lambda p: p[TS])
+                assert parent[NAME] == {"ops.mamba2": "zamba2.mamba",
+                                        "ops.attention": "zamba2.shared"}[
+                    e[NAME]]
+                assert e[TS] + e[DUR] <= parent[TS] + parent[DUR]
+        assert sorted(e[ARGS]["layer"] for e in evs
+                      if e[NAME] == "zamba2.shared") == list(range(calls))
+        assert tuple(next(e for e in evs if e[NAME] == "ops.mamba2")[ARGS][
+            "b"])[2] == cfg.ssm_groups
+        counters = st.metrics.snapshot()["counters"]
+        assert counters["zamba2.mamba_layers"]["value"] == cfg.n_layers
+        assert counters["zamba2.shared_calls"]["value"] == calls
+    finally:
+        obs.disable()
 
 
 def test_a_serving_step_records_no_spans(model):

@@ -11,7 +11,6 @@ chunk divides matches the reference's token-by-token decode.  Tolerances:
 rtol/atol 1e-4 on float32 logits and states (the same math summed in other
 orders; zamba2's KV cache is float32 here, as the config's dtype).
 """
-import dataclasses
 import functools
 
 import jax
@@ -30,6 +29,8 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import (family_module, params_from_numpy, reduced,
                                 rwkv6, zamba2)
 from repro_torch.models.tree import leaves
+
+from _config_parity import same_config
 
 RTOL = ATOL = 1e-4
 ARCHS = ("rwkv6-3b", "zamba2-2.7b")
@@ -77,8 +78,7 @@ def test_family_module_and_published_dims():
     assert (z.n_layers, z.attn_every, z.ssm_expand * z.d_model
             // z.ssm_head_dim, z.ssm_state, z.head_dim) == (54, 6, 80, 64, 80)
     for arch in ARCHS:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(jget_config(arch))
+        same_config(get_config(arch), jget_config(arch))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

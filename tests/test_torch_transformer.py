@@ -8,7 +8,6 @@ chunked 'xla' attention, and the port's decode path matches the reference's
 logits and caches.  Tolerances: rtol/atol 1e-4 on float32 logits (the two
 stacks sum in other orders; the KV cache rounds to bfloat16 in both).
 """
-import dataclasses
 import functools
 
 import jax
@@ -28,6 +27,8 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import family_module, reduced
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+
+from _config_parity import same_config
 
 RTOL = ATOL = 1e-4
 KEY = jax.random.PRNGKey(0)
@@ -70,10 +71,8 @@ def _inputs(cfg, b=2, s=12, seed=0):
 
 def test_configs_are_the_reference_configs():
     for arch in ARCH_IDS:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(jget_config(arch))
-        assert dataclasses.asdict(reduced(get_config(arch))) == \
-            dataclasses.asdict(jreduced(jget_config(arch)))
+        same_config(get_config(arch), jget_config(arch))
+        same_config(reduced(get_config(arch)), jreduced(jget_config(arch)))
     qwen = get_config("qwen3-8b")
     assert (qwen.n_layers, qwen.d_model, qwen.n_heads, qwen.n_kv_heads,
             qwen.head_dim, qwen.d_ff, qwen.vocab) == \
