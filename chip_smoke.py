@@ -92,10 +92,12 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      kernel once per layer, each request's prefill logits agree with the
      kernel forward's, and one prompt prefilled in two halves (the state
      carried through ``decode_step``) agrees with it prefilled whole;
- 13. zamba2-2.7b's forward as in phase 11 (one mamba2 launch per Mamba
+ 13. zamba2-2.7b's forward as in phase 11 (one mamba2 launch and one
+     launch of each of the Mamba layer's three glue kernels per Mamba
      layer, one flash_attention launch per shared-block call, on the
-     tensor-core route); then zamba2-7b's at its published widths, its
-     launches alone (81 mamba2 with b/c in two groups, 13 flash_attention
+     tensor-core route; every glue call held to its plain version); then
+     zamba2-7b's at its published widths, its launches alone (81 mamba2
+     with b/c in two groups and 81 of each glue kernel, 13 flash_attention
      at D 224, on the tensor-core route);
  14. zamba2-2.7b served as in phase 12;
  15. rwkv6 and mamba2 timed at the forwards' shapes beside their bounds and
@@ -106,7 +108,10 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
      rate (derived, not measured); then the rwkv6 block's six glue kernels
      at rwkv6-3b's forward shapes, inputs cycled through buffers larger
      than the L2, beside their byte bounds, their plain versions and their
-     wrappers' host time a call;
+     wrappers' host time a call; and the Zamba2 Mamba layer's three glue
+     kernels alike at zamba2-7b's forward shapes, with their launches in
+     one zamba2-7b forward (phase 13) and ptxas's spilled bytes, and the
+     input norm beside ``F.rms_norm``;
  16. the README's two commands on the port: ``python -m
      repro_torch.launch.serve --arch qwen3-8b --smoke --tuned-app gemm_conv
      --tuning-db <phase 4's DB>`` must print the blocks phase 4 committed
@@ -115,8 +120,9 @@ CUDA toolkit; it needs no network.  Phases, each printing its own lines:
  17. zamba2-2.7b served by the PagedServeEngine at full width and depth
      (phase 8's requests; pages of 16 rows, prefill chunks of 64 tokens),
      traced: every request ends OK, the mamba2 launches of that run alone
-     are the Mamba layers times the prefill chunks of more than one token,
-     each request's first token is the argmax of its own prefill re-run
+     are the Mamba layers times the prefill chunks of more than one token
+     and each glue kernel's the Mamba layers times every chunk and decode
+     step, each request's first token is the argmax of its own prefill re-run
      batch-1 in the engine's chunks, every kernel call of that re-run
      within its tolerance of the plain version on the same inputs, whose
      logits agree with the kernel forward's at LIMITS' ``chunks`` (each
@@ -647,7 +653,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     # the published Zamba2 form: B/C in two groups, two shared blocks
-    count_forward(torch, "zamba2-7b")
+    z7 = count_forward(torch, "zamba2-7b")
     torch.cuda.empty_cache()
 
     phase("15. rwkv6 and mamba2 timed at the forwards' shapes")
@@ -669,14 +675,20 @@ def main() -> int:
         passes = row["passes_ms"] or "not measured (no device time)"
         print(f"    device time a call by kernel (torch.profiler): {passes}")
         rows.append(row)
-    for row in time_glue(torch, fwd_launches, rates):
+    # the Mamba layer's glue rows count zamba2-7b's forward (the cell's)
+    glue_launches = {**fwd_launches, **{k: v for k, v in z7.items()
+                                        if k.startswith("mamba2_")}}
+    for row in time_glue(torch, glue_launches, rates, report):
         print(f"  {row['name']:17s} {row['ms']:.4f} ms (replayed from a CUDA "
               f"graph {row['ms_graph']:.4f} ms, {100 * row['bound_share']:.1f}"
               f"% of its bound)  bound {row['bound_ms']:.4f} ms by bytes "
               f"({row['bytes'] / 1e6:.1f} MB)  plain {row['plain_ms']:.4f} ms"
-              f"  host {row['host_ms']:.4f} ms a call  launches "
+              + (f"  library {row['library_ms']:.4f} ms"
+                 if row["library_ms"] is not None else "")
+              + f"  host {row['host_ms']:.4f} ms a call  launches "
               f"{row['launches']}  max_abs_err vs plain "
-              f"{row['max_abs_err']:.3g}")
+              f"{row['max_abs_err']:.3g}  spilled {row['spilled_bytes']} "
+              f"bytes")
         rows.append(row)
     phase("16. the README's two commands on the port, and the quickstart")
     run_two_commands(torch)
@@ -723,7 +735,7 @@ def main() -> int:
     run_bench(torch, rows)
 
     flash_row["zamba2_shape"]["launches"] = attn_launches["zamba2-2.7b"]
-    require(len(rows) == 14, f"{len(rows)} kernel rows, not 14")
+    require(len(rows) == 17, f"{len(rows)} kernel rows, not 17")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -1399,19 +1411,19 @@ def _launches(cfg, run: str) -> dict:
     """The launches of every kernel that one full-sequence forward
     (``run='forward'``), one serving prefill (``'prefill'``) or one decode
     step (``'decode'``) of ``cfg`` must make: the recurrences once per
-    layer in the forward and a prefill; rwkv6's six glue kernels once per
-    layer in all three; attention once per layer (per shared-block call)
+    layer in the forward and a prefill; rwkv6's six glue kernels and
+    zamba2's three once per layer in all three; attention once per layer
+    (per shared-block call)
     in the forward only, since a prefill's attention runs the decode path's
     plain einsums."""
-    from repro_torch.kernels import GLUE, KERNELS
+    from repro_torch.kernels import GLUE, KERNELS, MAMBA2_GLUE
     want = {k.__name__: 0 for k in KERNELS}
+    glue = {"rwkv6": GLUE, "zamba2": MAMBA2_GLUE}.get(cfg.family, ())
+    want.update({k.__name__: cfg.n_layers for k in glue})
     if run == "decode":
-        if cfg.family == "rwkv6":
-            want.update({k.__name__: cfg.n_layers for k in GLUE})
         return want
     if cfg.family == "rwkv6":
         want["rwkv6"] = cfg.n_layers
-        want.update({k.__name__: cfg.n_layers for k in GLUE})
     elif cfg.family == "zamba2":
         want["mamba2"] = cfg.n_layers
         if run == "forward":      # one call a hybrid layer (a group's)
@@ -1477,10 +1489,20 @@ class _CheckedOps:
     def _glue(self, name, args):
         from repro_torch.kernels import ops
         got = getattr(ops, name)(*args, implementation="cuda")
-        err = _check_glue(self.torch, name, args, got)
+        err, flips = _check_glue(self.torch, name, args, got)
         n, worst = self.worst.get(name, (0, 0.0))
         self.worst[name] = (n + 1, max(worst, err))
+        self.flips[name] = max(self.flips.get(name, 0.0), flips)
         return got
+
+    def mamba2_norm_in(self, *args):
+        return self._glue("mamba2_norm_in", args)
+
+    def mamba2_conv_in(self, *args):
+        return self._glue("mamba2_conv_in", args)
+
+    def mamba2_gate_out(self, *args):
+        return self._glue("mamba2_gate_out", args)
 
     def rwkv6_time_in(self, *args):
         return self._glue("rwkv6_time_in", args)
@@ -1501,16 +1523,21 @@ class _CheckedOps:
         return self._glue("rwkv6_channel_out", args)
 
 
-def _check_glue(torch, name, args, got) -> float:
-    """One call of an rwkv6 glue kernel against its plain version on the
-    same inputs (GLUE_TOL's rule): the elementwise kernels' outputs must be
-    the plain version's bits; a norm kernel's normed values (its mixes at
-    mu = 0, its head output at a gate of exactly 1: silu(1.28125) rounds to
-    1 in bfloat16) within GLUE_TOL of the plain norm, and its outputs the
-    plain version's bits on those normed values.  Returns the largest abs
-    difference from the plain version's outputs (read, no limit)."""
+def _check_glue(torch, name, args, got) -> tuple[float, float]:
+    """One call of a glue kernel (rwkv6's, zamba2's Mamba layer's) against
+    its plain version on the same inputs (GLUE_TOL's rule): the elementwise
+    kernels' outputs must be the plain version's bits; an rwkv6 norm
+    kernel's normed values (its mixes at mu = 0, its head output at a gate
+    of exactly 1: silu(1.28125) rounds to 1 in bfloat16) within GLUE_TOL of
+    the plain norm, and its outputs the plain version's bits on those
+    normed values; a Mamba layer's norm each row's plain bits but for its
+    normalizer (``glue_common.one_inv_a_row``).  Returns the largest abs
+    difference from the plain version's outputs and the share of the first
+    output rounded otherwise (read, no limit)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import glue_common
+    from repro_torch.kernels import mamba2_glue as M
     from repro_torch.kernels import plain
     from repro_torch.kernels import rwkv6_glue as G
     want = getattr(plain, name)(*args)
@@ -1528,8 +1555,9 @@ def _check_glue(torch, name, args, got) -> float:
             0 if time_in else 1]
         require(time_in or torch.equal(outs[0], wants[0]),
                 f"{name}: x + att differs from the plain version's bits")
-        _close(torch, normed, G._rms_norm(head[0] if time_in else wants[0],
-                                          head[-1]), *GLUE_TOL[dt])
+        _close(torch, normed,
+               glue_common.rms_norm(head[0] if time_in else wants[0],
+                                    head[-1]), *GLUE_TOL[dt])
         xp = G._shift(normed, prev)
         mixes = outs[:-1] if time_in else outs[1:-1]
         require(all(torch.equal(m, normed + (xp - normed) * mu[i])
@@ -1540,17 +1568,29 @@ def _check_glue(torch, name, args, got) -> float:
     elif name == "rwkv6_head_out" and dt == "bfloat16":
         o, ln_x, g_pre = args
         normed = G.rwkv6_head_out(o, ln_x, torch.full_like(g_pre, 1.28125))
-        _close(torch, normed, G._rms_norm(o, ln_x).reshape(normed.shape),
+        _close(torch, normed,
+               glue_common.rms_norm(o, ln_x).reshape(normed.shape),
                *GLUE_TOL[dt])
         require(torch.equal(got, normed * F.silu(g_pre)), f"{name}: the "
                 f"gate differs from the plain version's bits")
     elif name == "rwkv6_head_out":
         _close(torch, got, want, *GLUE_TOL[dt])
+    elif name in ("mamba2_norm_in", "mamba2_gate_out"):
+        if name == "mamba2_norm_in":
+            x, t, w, eps = args
+            pre, groups = (x if t is None else x + t), 1
+        else:
+            y, xs, z, d_skip, w, groups, eps = args
+            pre = M._gated(y, xs, z, d_skip)
+        require(glue_common.one_inv_a_row(got, pre, w, eps, groups),
+                f"{name}: a row is not the plain version's values times one "
+                f"normalizer near the plain norm's")
     else:
         require(all(torch.equal(g, w) for g, w in zip(outs, wants)),
                 f"{name} differs from its plain version's bits")
-    return max(float((g.float() - w.float()).abs().max())
-               for g, w in zip(outs, wants))
+    return (max(float((g.float() - w.float()).abs().max())
+                for g, w in zip(outs, wants)),
+            float((outs[0] != wants[0]).float().mean()))
 
 
 def run_forward(torch, arch: str) -> dict:
@@ -1663,7 +1703,7 @@ def run_forward(torch, arch: str) -> dict:
             "forward_plain_s": t_plain}
 
 
-def count_forward(torch, arch: str) -> None:
+def count_forward(torch, arch: str) -> dict:
     """One full-sequence forward of ``arch`` at full width and depth over 1
     x FWD_TOKENS tokens on the kernels: the launches of that forward alone
     are :func:`_launches`' (zamba2-7b: one grouped mamba2 a layer, one
@@ -1704,6 +1744,7 @@ def count_forward(torch, arch: str) -> None:
           f"{ {k: v for k, v in launches.items() if v} }, flash_attention "
           f"routes {routes}")
     del params, logits
+    return launches
 
 
 def run_serving(torch, model) -> None:
@@ -1920,21 +1961,27 @@ def run_paged(torch, arch: str, pressure: bool = False) -> dict[str, int]:
               f"{dec[1] / dec[0] * 1e3:.1f} ms each; {chunks} prefill "
               f"chunks, {pre[1] / pre[0] * 1e3:.1f} ms each; "
               f"{stats['preemptions']} preemptions; launches {launches}")
-        return {r.rid: list(r.out) for r in done}, stats, launches, chunks
+        return ({r.rid: list(r.out) for r in done}, stats, launches, chunks,
+                dec[0])
 
-    out, stats, launches, chunks = serve(None, False)
+    out, stats, launches, chunks, steps = serve(None, False)
     # no preemption in the ample pool: each prompt is prefilled once, in
     # ceil(n / chunk) chunks; a chunk of one token takes the decode step's
-    # one-token path, which launches no kernel
+    # one-token path, which launches no recurrence kernel; the glue kernels
+    # (zamba2's) run once a layer in every chunk and decode step
     sizes = [min(chunk, len(p) - s) for p in prompts
              for s in range(0, len(p), chunk)]
     require(stats["preemptions"] == 0, "the ample pool preempted")
     require(chunks == len(sizes), f"{chunks} chunks, not {len(sizes)}")
     multi = sum(n > 1 for n in sizes)
-    want = {k: n * multi for k, n in _launches(cfg, "prefill").items()}
+    per_step = _launches(cfg, "decode")
+    # the kernel calls of the prompts' chunks alone (the checked re-run's)
+    calls = {k: n * multi if not per_step[k] else n * len(sizes)
+             for k, n in _launches(cfg, "prefill").items()}
+    want = {k: n + per_step[k] * steps for k, n in calls.items()}
     require(launches == want, f"paged serving launched {launches}, not "
-            f"{want} ({multi} chunks of more than one token; decode steps "
-            f"launch no kernel)")
+            f"{want} ({multi} chunks of more than one token, {len(sizes)} "
+            f"in all, {steps} decode steps)")
     res = subprocess.run([sys.executable, "-m", "repro_torch.obs",
                           str(telemetry)], cwd=ROOT, capture_output=True,
                          text=True, env={**os.environ,
@@ -1985,7 +2032,7 @@ def run_paged(torch, arch: str, pressure: bool = False) -> dict[str, int]:
                     f"token is not the argmax of its chunked prefill")
         print("  every first token is the argmax of its batch-1 chunked "
               "prefill")
-        calls = {k: n for k, n in want.items() if n}
+        calls = {k: n for k, n in calls.items() if n}
         require({k: n for k, (n, _) in checked.worst.items()} == calls,
                 f"the chunked prefill made {checked.worst}, not {calls} "
                 f"checked kernel calls")
@@ -2015,7 +2062,7 @@ def run_paged(torch, arch: str, pressure: bool = False) -> dict[str, int]:
                     "prefill drifts from the kernel forward")
     if pressure:
         # the page-pressure run: same tokens, through swap-out/swap-in
-        tight, tstats, _, _ = serve(PRESSURE_PAGES, True)
+        tight, tstats, *_ = serve(PRESSURE_PAGES, True)
         require(tstats["preemptions"] >= 1,
                 f"{PRESSURE_PAGES} pages never preempted")
         require(tight == out, "preemption changed a request's tokens")
@@ -2419,31 +2466,53 @@ def time_recurrences(torch, launches, rates, bf16_peak) -> tuple:
     return rows, span_floor
 
 
-def time_glue(torch, launches, rates) -> list[dict]:
-    """The rwkv6 block's six glue kernels at rwkv6-3b's forward shapes (1 x
-    4096 tokens, D 2560, 40 heads of 64, channel mix 8960, bfloat16), each
-    checked against its plain version, timed back to back and replayed
-    from a CUDA graph, its plain version timed, and its wrapper's host time
-    a call.  Each call takes the next of enough input sets to exceed the
-    50 MB L2, so inputs come from HBM as in the forward.  Bytes: each
-    input read once, each output written once (the weights' rows too)."""
+def time_glue(torch, launches, rates, report) -> list[dict]:
+    """The glue kernels at their cells' forward shapes, each checked against
+    its plain version, timed back to back and replayed from a CUDA graph,
+    its plain version timed, and its wrapper's host time a call: rwkv6's
+    six at rwkv6-3b's (1 x 4096 tokens, D 2560, 40 heads of 64, channel mix
+    8960), the Mamba layer's three at zamba2-7b's (1 x 4096 tokens, d 3584,
+    112 heads of 64, two B/C groups of 64; the norm without a hybrid call's
+    t, as 68 of its 81 layers run it), bfloat16; that norm is also timed
+    as ``F.rms_norm``, the one library call that computes it.  Each call
+    takes the next
+    of enough input sets to exceed the 50 MB L2, so inputs come from HBM as
+    in the forward.  Bytes: each input read once, each output written once
+    (the weights' rows too).  ``report`` is phase 2's ptxas report: each
+    row gives its kernel's spilled bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba2_glue as M
     from repro_torch.kernels import plain
     from repro_torch.kernels import rwkv6_glue as G
 
     bw, _ = rates
+    # the library's own call for a glue op, where one computes it
+    library = {"mamba2_norm_in": lambda x, t, ln, eps: F.rms_norm(
+        x, (x.shape[-1],), ln, eps)}
     gen = torch.Generator(device="cuda").manual_seed(11)
     bf = torch.bfloat16
     b, t, d, h, dh, f = 1, FWD_TOKENS, 2560, 40, 64, 8960
 
-    def rnd(*shape, scale=1.0, shift=0.0):
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
-                + shift).to(bf)
+                + shift).to(dtype)
 
     def sets(make, nbytes):
         """Input sets of ``nbytes`` each, enough to exceed the L2 twice."""
         return [make() for _ in range(max(2, -(-100_000_000 // nbytes)))]
     act = b * t * d * 2
     ln = rnd(d, scale=0.1, shift=1.0)
+    # zamba2-7b's Mamba layer: in_proj's output [z | x | B | C | dt]
+    zd, zh, gn = 3584, 112, 2 * 64
+    hp, c = zh * 64, zh * 64 + 2 * gn
+    zw = hp + c + zh
+    zln, znorm = rnd(zd, scale=0.1, shift=1.0), rnd(hp, scale=0.1, shift=1.0)
+    conv_w, conv_b = rnd(M.CONV_K, c, scale=0.3), rnd(c, scale=0.1)
+    dt_bias = rnd(zh, scale=0.5, dtype=torch.float32)
+    a_log = rnd(zh, scale=0.5, shift=1.0, dtype=torch.float32)
+    d_skip = rnd(zh, scale=0.5, shift=1.0, dtype=torch.float32)
+    zact = b * t * hp * 2
     specs = [
         # name, inputs maker, bytes read and written
         ("rwkv6_time_in", lambda: (rnd(b, t, d, scale=3.0), ln,
@@ -2462,30 +2531,51 @@ def time_glue(torch, launches, rates) -> list[dict]:
         ("rwkv6_relu2", lambda: (rnd(b, t, f, scale=3.0),), 2 * b * t * f * 2),
         ("rwkv6_channel_out", lambda: (rnd(b, t, d), rnd(b, t, d, scale=4.0),
                                        rnd(b, t, d)), 4 * act),
+        ("mamba2_norm_in", lambda: (rnd(b, t, zd, scale=3.0), None, zln,
+                                    1e-5), 2 * b * t * zd * 2 + zd * 2),
+        ("mamba2_conv_in", lambda: (rnd(b, t, zw, scale=2.0), conv_w, conv_b,
+                                    dt_bias, a_log, None, bf, 2),
+         # x | B | C and dt read; xs, x_scaled, B, C, the decay and the
+         # tail written
+         b * t * (c + zh) * 2 + 5 * c * 2 + 2 * zh * 4
+         + b * t * (2 * hp + 2 * gn + zh) * 2 + b * 3 * c * 2),
+        ("mamba2_gate_out", lambda: (rnd(b, t, zh, 64), rnd(b, t, zh, 64),
+                                     rnd(b, t, zw, scale=2.0)[..., :hp],
+                                     d_skip, znorm, 2, 1e-5),
+         4 * zact + hp * 2 + zh * 4),
     ]
     rows = []
     for name, make, nbytes in specs:
         ins = sets(make, nbytes)
-        kern, ref = getattr(G, name), getattr(plain, name)
-        err = _check_glue(torch, name, ins[0], kern(*ins[0]))
+        mod = M if name.startswith("mamba2_") else G
+        kern, ref = getattr(mod, name), getattr(plain, name)
+        err, _ = _check_glue(torch, name, ins[0], kern(*ins[0]))
         turn = iter(range(1 << 30))
 
         def call(fn):
             return lambda: fn(*ins[next(turn) % len(ins)])
         bound = nbytes / bw * 1e3
+        spilled = [int(ln_.rsplit(", ", 1)[1].split()[0]) for ln_ in report
+                   if ln_.startswith(name + "_kernel")]
         row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/csrc/rwkv6_glue.cu",
+               "source": f"src/repro_torch/csrc/{mod.__name__.rsplit('.')[-1]}"
+                         f".cu",
                "replaces": "none (XLA fuses the expressions, "
-                           "src/repro/models/rwkv6.py:95-122)",
+                           + ("src/repro/models/zamba2.py)" if mod is M else
+                              "src/repro/models/rwkv6.py:95-122)"),
                "launches": launches.get(name), "max_abs_err": err,
                "ms": _time_ms(torch, call(kern)),
                "ms_graph": _time_graph_ms(torch, call(kern),
                                           calls=2 * len(ins)),
                "plain_ms": _time_ms(torch, call(ref)),
                "host_ms": _host_ms(torch, call(kern)),
-               "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-               "library": "no single PyTorch call computes it",
-               "dtype": "bfloat16", "bytes": nbytes}
+               "bound_ms": bound, "bound_by": "bytes",
+               "library_ms": (_time_ms(torch, call(library[name]))
+                              if name in library else None),
+               "library": ("torch.nn.functional.rms_norm" if name in library
+                           else "no single PyTorch call computes it"),
+               "dtype": "bfloat16", "bytes": nbytes,
+               "spilled_bytes": max(spilled) if spilled else None}
         row["bound_share"] = bound / row["ms_graph"]
         rows.append(row)
         del ins
@@ -3517,8 +3607,10 @@ def run_audit(torch) -> dict:
             require(not unexplained, f"{arch} {name}: the card reported "
                     f"syncs at {sorted(unexplained)} that the audit does "
                     f"not find")
-            want = ({"mamba2": cfg.n_layers}
-                    if (arch, name) == ("zamba2-2.7b", "prefill") else {})
+            run = {"decode": "decode", "paged_decode": "decode",
+                   "prefill": "prefill"}.get(name)
+            want = {} if run is None else {
+                k: n for k, n in _launches(cfg, run).items() if n}
             require(launches == want, f"{arch} {name} launched {launches}, "
                     f"not {want}")
             out[arch][name] = launches.get("mamba2", 0)

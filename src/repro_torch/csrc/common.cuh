@@ -52,6 +52,31 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
+// The sum of v over the block, in a fixed order, in every thread.  part is
+// 32 floats of shared memory; callers that sum more than once alternate two
+// of them, so that one barrier a sum suffices (a thread writes part again
+// only after every thread has passed the barrier of the sum before, and so
+// read that one's).
+__device__ __forceinline__ float block_total(float v, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += part[w];
+  return total;
+}
+
+// Streaming multiprocessors of the current device, asked once a device.
+inline int sm_count() {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (cache[dev] == 0) cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cache[dev] > 0 ? cache[dev] : 132;
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }

@@ -44,8 +44,10 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hasco::block_total;
 using hasco::cdiv;
 using hasco::from_f32;
+using hasco::sm_count;
 using hasco::to_f32;
 
 constexpr float EPS = 1e-6f;  // models/layers.py::rms_norm's eps
@@ -109,19 +111,6 @@ __device__ __forceinline__ void store(O* __restrict__ p, const float (&v)[N]) {
     for (int i = 0; i < PER; ++i) e[i] = from_f32<O>(v[j * PER + i]);
     reinterpret_cast<uint4*>(p)[j] = raw;
   }
-}
-// The sum of v over the block, in a fixed order, in every thread.  part is
-// 32 floats of shared memory; callers alternate two of them, so that one
-// barrier a sum suffices (a thread writes part again only after every
-// thread has passed the barrier of the sum before, and so read that one's).
-__device__ __forceinline__ float block_total(float v, float* part) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = hasco::warp_sum(v);
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += part[w];
-  return total;
 }
 
 // ---- 1 and 4: the mixes' prologue -------------------------------------------
@@ -348,15 +337,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---- launch -----------------------------------------------------------------
-
-int sm_count() {
-  static int cache[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (cache[dev] == 0) cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cache[dev] > 0 ? cache[dev] : 132;
-}
 
 // one vector a thread, so D <= 5120 bfloat16, 2560 float32
 template <typename T>

@@ -22,6 +22,12 @@ WKV6 and SSD recurrences, each with a plain PyTorch version and dispatch in
                                    (port-only: the reference leaves it to
                                    XLA's fusion); their plain versions are
                                    in the same module
+  mamba2_glue                    — ``csrc/mamba2_glue.cu``: the Zamba2
+                                   Mamba layer's elementwise and row-norm
+                                   work around its products and the SSD,
+                                   three ops (port-only, as rwkv6_glue);
+                                   their plain versions are in the same
+                                   module
   plain                          — the plain versions on any device, the
                                    ops of a model run with ``impl=plain``
 
@@ -36,12 +42,14 @@ from .flash_attention import flash_attention
 from .gemm import gemm
 from .gemv import gemv
 from .mamba2 import mamba2
+from .mamba2_glue import GLUE as MAMBA2_GLUE
 from .rwkv6 import rwkv6
 from .rwkv6_glue import GLUE
 
 INTRINSICS = (gemm, gemv, dot, conv2d)
-KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2, bank_mm, *GLUE)
+KERNELS = (*INTRINSICS, flash_attention, rwkv6, mamba2, bank_mm, *GLUE,
+           *MAMBA2_GLUE)
 
-__all__ = ["GLUE", "INTRINSICS", "KERNELS", "bank_mm", "conv2d", "dot",
-           "flash_attention", "gemm", "gemv", "mamba2", "ops", "plain", "ref",
-           "rwkv6"]
+__all__ = ["GLUE", "INTRINSICS", "KERNELS", "MAMBA2_GLUE", "bank_mm",
+           "conv2d", "dot", "flash_attention", "gemm", "gemv", "mamba2",
+           "ops", "plain", "ref", "rwkv6"]

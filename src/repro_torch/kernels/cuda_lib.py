@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm.cu", "gemv.cu", "dotprod.cu", "conv2d.cu",
            "flash_attention.cu", "rwkv6.cu", "mamba2.cu", "bank_mm.cu",
-           "rwkv6_glue.cu")
+           "rwkv6_glue.cu", "mamba2_glue.cu")
 HEADERS = ("common.cuh", "tile_mm.cuh", "state_pass.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -60,6 +60,11 @@ SIGNATURES = {
     "hasco_rwkv6_head_out": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "hasco_rwkv6_relu2": [_P, _P, _LL, _I, _P],
     "hasco_rwkv6_channel_out": [_P, _P, _P, _P, _LL, _I, _P],
+    "hasco_mamba2_norm_in": [_P, _P, _P, _P, _LL, _I, _F, _I, _P],
+    "hasco_mamba2_conv_in": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _I, _I, _I, _P],
+    "hasco_mamba2_gate_out": [_P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I,
+                              _I, _F, _I, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """Dispatch wrappers for the intrinsic kernels, attention, the
-recurrences (RWKV-6, Mamba-2) and the rwkv6 block's fused glue.
+recurrences (RWKV-6, Mamba-2) and the fused glue of the rwkv6 block and the
+Zamba2 Mamba layer.
 
 Every op takes ``implementation``: 'cuda' (the hand-written kernel; CUDA
 tensors only) or 'torch' (the plain PyTorch version; CPU tensors only).  A
@@ -28,6 +29,7 @@ from . import flash_attention as _flash
 from . import gemm as _gemm
 from . import gemv as _gemv
 from . import mamba2 as _mamba2
+from . import mamba2_glue as _mamba2_glue
 from . import ref, xla_attention, xla_linear
 from . import rwkv6 as _rwkv6
 from . import rwkv6_glue as _glue
@@ -301,13 +303,44 @@ def mamba2(x, a, b, c, state=None, *, implementation: str = "cuda"):
 
 
 def _glue_op(name: str, implementation: str, ts, args):
-    """One of the rwkv6 block's glue ops (``rwkv6_glue``): its kernel on
+    """One of the glue ops (``rwkv6_glue``, ``mamba2_glue``): its kernel on
     CUDA tensors or, for 'torch', its plain version on CPU tensors."""
+    module = _mamba2_glue if name.startswith("mamba2_") else _glue
     if implementation == "cuda":
         _no_grad_through_kernel(name, *ts)
     if not _check(implementation, *ts):
-        return getattr(_glue, name + "_plain")(*args)
-    return getattr(_glue, name)(*args)
+        return getattr(module, name + "_plain")(*args)
+    return getattr(module, name)(*args)
+
+
+def mamba2_norm_in(x, t, ln, eps, *, implementation: str = "cuda"):
+    """The Zamba2 Mamba layer's input norm: x (..., d), t like x (a hybrid
+    call's output) or None, ln (d) -> rms_norm(x + t, ln) with ``eps``."""
+    ts = (x, ln) if t is None else (x, t, ln)
+    return _glue_op("mamba2_norm_in", implementation, ts, (x, t, ln, eps))
+
+
+def mamba2_conv_in(zxbcdt, conv_w, conv_b, dt_bias, a_log, tail, decay_dtype,
+                   groups, *, implementation: str = "cuda"):
+    """From in_proj's output zxbcdt (B, S, [z | x | B | C | dt]): the causal
+    conv of [x | B | C] (tail (B, 3, C) or None before the first row), dt =
+    softplus(dt_raw + dt_bias), the log-decay -dt * exp(a_log) in
+    ``decay_dtype`` -> (xs, x scaled by dt, B and C as (B, S, groups, N),
+    log-decay, new tail)."""
+    ts = (zxbcdt, conv_w, conv_b, dt_bias, a_log)
+    return _glue_op("mamba2_conv_in", implementation,
+                    ts if tail is None else (*ts, tail),
+                    (*ts, tail, decay_dtype, groups))
+
+
+def mamba2_gate_out(y, xs, z, d_skip, norm_w, groups, eps, *,
+                    implementation: str = "cuda"):
+    """y, xs (B, S, H, P), z (B, S, H*P), d_skip (H), norm_w (H*P) ->
+    rms_norm((y + xs * D) * silu(z), norm_w) over each of ``groups`` equal
+    parts of H*P."""
+    return _glue_op("mamba2_gate_out", implementation,
+                    (y, xs, z, d_skip, norm_w),
+                    (y, xs, z, d_skip, norm_w, groups, eps))
 
 
 def rwkv6_time_in(x, ln, mu, prev=None, *, implementation: str = "cuda"):

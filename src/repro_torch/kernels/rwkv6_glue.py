@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .glue_common import fail, rms_norm, same_dtype, stream, vectors
 
 MAX_THREADS = 640   # the prologue kernel's block at most: one 16-byte
                     # vector a thread (csrc/rwkv6_glue.cu's MIX_THREADS)
@@ -40,16 +41,6 @@ MAX_THREADS = 640   # the prologue kernel's block at most: one 16-byte
 # ---------------------------------------------------------------------------
 # Plain versions: the model's expressions, on any device, under autograd
 # ---------------------------------------------------------------------------
-
-def _rms_norm(x: torch.Tensor, w: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """``models/layers.py::rms_norm`` (no ``plus_one``), which the other
-    families keep."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    xf = xf * torch.rsqrt(var + eps)
-    return (xf * w.float()).to(x.dtype)
-
 
 def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     """Token shift: x_{t-1}, with ``prev`` as the carry for decode."""
@@ -68,7 +59,7 @@ def _mixes(x: torch.Tensor, mu: torch.Tensor, prev) -> tuple:
 def rwkv6_time_in_plain(x, ln, mu, prev=None) -> tuple:
     """x (B, T, D), ln (D), mu (5, D), prev (B, D) or None -> (xr, xk, xv,
     xg, xw, carry): the five mixes of the normed x and its last row."""
-    xn = _rms_norm(x, ln)
+    xn = rms_norm(x, ln)
     return (*_mixes(xn, mu, prev), xn[:, -1])
 
 
@@ -82,14 +73,14 @@ def rwkv6_head_out_plain(out, ln_x, g_pre) -> torch.Tensor:
     """out (B, T, H, dh) from the recurrence, ln_x (H, dh), g_pre (B, T,
     H*dh) -> the gated (B, T, H*dh)."""
     b, s, h, dh = out.shape
-    return _rms_norm(out, ln_x).reshape(b, s, h * dh) * F.silu(g_pre)
+    return rms_norm(out, ln_x).reshape(b, s, h * dh) * F.silu(g_pre)
 
 
 def rwkv6_channel_in_plain(x, att, ln, mu, prev=None) -> tuple:
     """x, att (B, T, D), ln (D), mu (2, D), prev (B, D) or None -> (x +
     att, xk, xr, carry)."""
     x = x + att
-    xn = _rms_norm(x, ln)
+    xn = rms_norm(x, ln)
     return (x, *_mixes(xn, mu, prev), xn[:, -1])
 
 
@@ -106,48 +97,22 @@ def rwkv6_channel_out_plain(x, r_pre, cv) -> torch.Tensor:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _fail(name: str, msg: str):
-    raise ValueError(f"{name}: {msg}")
-
-
-def _same_dtype(name: str, dtype, *ts) -> int:
-    for t in ts:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} takes its operands in one dtype, got "
-                            f"{[str(x.dtype) for x in ts]} and {dtype}")
-    return cuda_lib.dtype_code(dtype)
-
-
-def _vectors(name: str, row: int, *ts) -> None:
-    """The kernels move 16-byte vectors only: each operand's rows (``row``
-    values) must be whole vectors, at 16-byte-aligned addresses."""
-    vec = 16 // ts[0].element_size()
-    if row % vec or any(t.data_ptr() % 16 for t in ts):
-        _fail(name, f"takes rows of a multiple of {vec} values at 16-byte "
-              f"aligned addresses, got rows of {row} at "
-              f"{[t.data_ptr() % 16 for t in ts]} bytes past 16")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _mix_in(name, x, add, ln, mu, prev):
     """The prologue kernel: -> (x + add or None, mixes (n, B, T, D),
     carry (B, D))."""
     if x.dim() != 3:
-        _fail(name, f"x {tuple(x.shape)} is not (B, T, D)")
+        fail(name, f"x {tuple(x.shape)} is not (B, T, D)")
     b, t, d = x.shape
     if ln.shape != (d,) or mu.dim() != 2 or mu.shape[1] != d \
             or (prev is not None and prev.shape != (b, d)) \
             or (add is not None and add.shape != x.shape):
-        _fail(name, f"shapes x {tuple(x.shape)}, ln {tuple(ln.shape)}, mu "
-              f"{tuple(mu.shape)}, prev "
-              f"{None if prev is None else tuple(prev.shape)}")
+        fail(name, f"shapes x {tuple(x.shape)}, ln {tuple(ln.shape)}, mu "
+             f"{tuple(mu.shape)}, prev "
+             f"{None if prev is None else tuple(prev.shape)}")
     max_d = MAX_THREADS * 16 // x.element_size()
     if min(b, t, d) < 1 or d > max_d or b > 65535:
-        _fail(name, f"takes 1 <= B <= 65535, T >= 1, 1 <= D <= {max_d}: "
-              f"{(b, t, d)}")
+        fail(name, f"takes 1 <= B <= 65535, T >= 1, 1 <= D <= {max_d}: "
+             f"{(b, t, d)}")
     if mu.dtype != x.dtype:
         mu = mu.to(x.dtype)
     if prev is not None and prev.dtype == torch.bfloat16 \
@@ -159,8 +124,8 @@ def _mix_in(name, x, add, ln, mu, prev):
     for extra in (add, prev):
         if extra is not None:
             ts.append(extra)
-    code = _same_dtype(name, x.dtype, *ts)
-    _vectors(name, d, *ts)
+    code = same_dtype(name, x.dtype, *ts)
+    vectors(name, d, *ts)
     cuda_lib.check_operands(*ts)
     n = mu.shape[0]
     mixes = torch.empty((n, b, t, d), dtype=x.dtype, device=x.device)
@@ -170,7 +135,7 @@ def _mix_in(name, x, add, ln, mu, prev):
         x.data_ptr(), None if add is None else add.data_ptr(), ln.data_ptr(),
         mu.data_ptr(), None if prev is None else prev.data_ptr(),
         None if x_out is None else x_out.data_ptr(), mixes.data_ptr(),
-        carry.data_ptr(), b, t, d, n, code, _stream())
+        carry.data_ptr(), b, t, d, n, code, stream())
     cuda_lib.check(rc, name)
     return x_out, mixes, carry
 
@@ -201,16 +166,16 @@ def rwkv6_decay(w0: torch.Tensor, lora: torch.Tensor,
     name = "rwkv6_decay"
     hd = lora.shape[-1]
     if w0.shape != (hd,) or lora.numel() < 1:
-        _fail(name, f"w0 {tuple(w0.shape)}, lora {tuple(lora.shape)}")
+        fail(name, f"w0 {tuple(w0.shape)}, lora {tuple(lora.shape)}")
     if dtype not in (lora.dtype, torch.float32):
         raise TypeError(f"{name} writes {lora.dtype} or float32, not {dtype}")
-    code = _same_dtype(name, lora.dtype, w0, lora)
-    _vectors(name, hd, w0, lora)
+    code = same_dtype(name, lora.dtype, w0, lora)
+    vectors(name, hd, w0, lora)
     cuda_lib.check_operands(w0, lora)
     out = torch.empty(lora.shape, dtype=dtype, device=lora.device)
     rc = cuda_lib.library().hasco_rwkv6_decay(
         w0.data_ptr(), lora.data_ptr(), out.data_ptr(), lora.numel(), hd,
-        code, cuda_lib.dtype_code(dtype), _stream())
+        code, cuda_lib.dtype_code(dtype), stream())
     cuda_lib.check(rc, name)
     rwkv6_decay.launches += 1
     return out
@@ -221,23 +186,23 @@ def rwkv6_head_out(out: torch.Tensor, ln_x: torch.Tensor,
     """:func:`rwkv6_head_out_plain` in one launch."""
     name = "rwkv6_head_out"
     if out.dim() != 4:
-        _fail(name, f"out {tuple(out.shape)} is not (B, T, H, dh)")
+        fail(name, f"out {tuple(out.shape)} is not (B, T, H, dh)")
     b, t, h, dh = out.shape
     if ln_x.shape != (h, dh) or g_pre.shape != (b, t, h * dh) \
             or min(b, t, h, dh) < 1:
-        _fail(name, f"shapes out {tuple(out.shape)}, ln_x "
-              f"{tuple(ln_x.shape)}, g_pre {tuple(g_pre.shape)}")
-    code = _same_dtype(name, out.dtype, out, ln_x, g_pre)
-    _vectors(name, dh, out, ln_x, g_pre)
+        fail(name, f"shapes out {tuple(out.shape)}, ln_x "
+             f"{tuple(ln_x.shape)}, g_pre {tuple(g_pre.shape)}")
+    code = same_dtype(name, out.dtype, out, ln_x, g_pre)
+    vectors(name, dh, out, ln_x, g_pre)
     lanes = dh * out.element_size() // 16
     if lanes > 32 or lanes & (lanes - 1):
-        _fail(name, f"puts a head on a power of two of lanes up to 32, one "
-              f"16-byte vector each: dh {dh} takes {lanes}")
+        fail(name, f"puts a head on a power of two of lanes up to 32, one "
+             f"16-byte vector each: dh {dh} takes {lanes}")
     cuda_lib.check_operands(out, ln_x, g_pre)
     y = torch.empty(g_pre.shape, dtype=out.dtype, device=out.device)
     rc = cuda_lib.library().hasco_rwkv6_head_out(
         out.data_ptr(), ln_x.data_ptr(), g_pre.data_ptr(), y.data_ptr(),
-        b * t * h, h, dh, code, _stream())
+        b * t * h, h, dh, code, stream())
     cuda_lib.check(rc, name)
     rwkv6_head_out.launches += 1
     return y
@@ -247,13 +212,13 @@ def rwkv6_relu2(h: torch.Tensor) -> torch.Tensor:
     """:func:`rwkv6_relu2_plain` in one launch."""
     name = "rwkv6_relu2"
     if h.dim() < 1 or h.numel() < 1:
-        _fail(name, f"h {tuple(h.shape)} holds no rows")
+        fail(name, f"h {tuple(h.shape)} holds no rows")
     code = cuda_lib.dtype_code(h.dtype)
-    _vectors(name, h.shape[-1], h)
+    vectors(name, h.shape[-1], h)
     cuda_lib.check_operands(h)
     out = torch.empty_like(h)
     rc = cuda_lib.library().hasco_rwkv6_relu2(
-        h.data_ptr(), out.data_ptr(), h.numel(), code, _stream())
+        h.data_ptr(), out.data_ptr(), h.numel(), code, stream())
     cuda_lib.check(rc, name)
     rwkv6_relu2.launches += 1
     return out
@@ -265,15 +230,15 @@ def rwkv6_channel_out(x: torch.Tensor, r_pre: torch.Tensor,
     name = "rwkv6_channel_out"
     if r_pre.shape != x.shape or cv.shape != x.shape or x.dim() < 1 \
             or x.numel() < 1:
-        _fail(name, f"shapes x {tuple(x.shape)}, r_pre "
-              f"{tuple(r_pre.shape)}, cv {tuple(cv.shape)}")
-    code = _same_dtype(name, x.dtype, x, r_pre, cv)
-    _vectors(name, x.shape[-1], x, r_pre, cv)
+        fail(name, f"shapes x {tuple(x.shape)}, r_pre "
+             f"{tuple(r_pre.shape)}, cv {tuple(cv.shape)}")
+    code = same_dtype(name, x.dtype, x, r_pre, cv)
+    vectors(name, x.shape[-1], x, r_pre, cv)
     cuda_lib.check_operands(x, r_pre, cv)
     out = torch.empty_like(x)
     rc = cuda_lib.library().hasco_rwkv6_channel_out(
         x.data_ptr(), r_pre.data_ptr(), cv.data_ptr(), out.data_ptr(),
-        x.numel(), code, _stream())
+        x.numel(), code, stream())
     cuda_lib.check(rc, name)
     rwkv6_channel_out.launches += 1
     return out

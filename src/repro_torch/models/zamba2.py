@@ -32,7 +32,10 @@ Mamba-2 mixer per layer: in_proj -> [z | x | B | C | dt], a short causal
 depthwise conv on (x | B | C) with its carried tail, the SSD recurrence
 through ``ops.mamba2`` (the CUDA kernel with ``impl='cuda'``) with per-head
 scalar decay a = dt * (-exp(A_log)), the D skip, silu(z) gating, RMS norm
-(over each of ``ssm_groups`` groups of the inner width), out_proj.  B and
+(over each of ``ssm_groups`` groups of the inner width), out_proj.  The
+work around the two products and the SSD is three glue ops
+(``ops.mamba2_norm_in``, ``mamba2_conv_in``, ``mamba2_gate_out``: one
+kernel each with ``impl='cuda'``, ``kernels/mamba2_glue.py``).  B and
 C come in ``ssm_groups`` groups of ``ssm_state``, head h reading group h //
 (heads / groups), and reach the kernel as (B, S, G, N) in one launch a
 layer, one group (zamba2-2.7b's) too: every head reads it, where the
@@ -172,54 +175,37 @@ def compute_segments(cfg: ModelConfig, tp: int) -> dict:
             ("conv",): conv}
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                eps: float = 1e-6, groups: int = 1) -> torch.Tensor:
-    """``rms_norm(y * silu(z), w)`` over each of ``groups`` equal parts of
-    ``hp`` (``Zamba2RMSNormGated``); with one group, over the whole ``hp``
-    when each rank holds ``1/T`` of it: the sum of squares is summed over
-    'model'."""
+def _gated_norm_tp(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)`` over the whole ``hp`` when each rank
+    holds ``1/T`` of it: the sum of squares is summed over 'model'."""
     g = y * F.silu(z)
-    if groups > 1:
-        parts = (*g.shape[:-1], groups, g.shape[-1] // groups)
-        return L.rms_norm(g.reshape(parts), w.reshape(parts[-2:]),
-                          eps=eps).reshape(g.shape)
-    if local.tp_group() is None:
-        return L.rms_norm(g, w, eps=eps)
     gf = g.float()
     ss = local.reduce_partial(torch.sum(gf * gf, dim=-1, keepdim=True))
     var = ss / (gf.shape[-1] * local.tp_degree())
     return (gf * torch.rsqrt(var + eps) * w.float()).to(g.dtype)
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 tail: torch.Tensor | None = None):
-    """Depthwise causal conv, window CONV_K, by shift-and-add.  x: (B, S,
-    C); tail: (B, CONV_K - 1, C), the carry for decode.  Returns (y,
-    new_tail)."""
-    if tail is None:
-        tail = x.new_zeros((x.shape[0], CONV_K - 1, x.shape[2]))
-    ext = torch.cat([tail, x], dim=1)                 # (B, S+K-1, C)
-    s = x.shape[1]
-    y = sum(ext[:, i:i + s] * w[i] for i in range(CONV_K)) + b
-    return F.silu(y), ext[:, -(CONV_K - 1):]
-
-
 def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
                  state: Params | None = None, t=None):
     """x + Mamba2(norm(x + t)) (t: a hybrid call's output, else None) ->
-    (x, new conv tail and SSD state)."""
+    (x, new conv tail and SSD state).  The work around the two products
+    and the SSD is three glue ops (``kernels.mamba2_glue``: one kernel each
+    with ``impl='cuda'``); under a 'model' axis in_proj is split and the
+    gated norm's squares are summed over ranks, so there the D skip and
+    :func:`_gated_norm_tp` take the last op's place."""
     bsz, s, _ = x.shape
     _, h, n = _dims(cfg, tp)
     h //= local.tp_degree()                           # this rank's heads
     ph = cfg.ssm_head_dim
     hp = h * ph
     grp = cfg.ssm_groups
-    gn = grp * n                                      # B (and C) columns
     st = state or {}
+    mesh = local.tp_group() is not None
 
-    xn = L.rms_norm(x if t is None else x + t, p["ln"], eps=cfg.norm_eps)
+    xn = L.op(impl, "mamba2_norm_in")(x, t, p["ln"], cfg.norm_eps)
     w = p["in_proj"]
-    if local.tp_group() is None:
+    if not mesh:
         zxbcdt = xn @ w
     else:
         # column-parallel z | x | dt; B | C a replicated product
@@ -227,19 +213,12 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
         zxbcdt = torch.cat([zx[..., :2 * hp], xn @ w[:, 2 * hp:-h],
                             zx[..., 2 * hp:]], -1)
     z = zxbcdt[..., :hp]
-    xbc = zxbcdt[..., hp:hp + hp + 2 * gn]
-    dt_raw = zxbcdt[..., -h:]
-
-    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                 st.get("conv"))
-    xs = xbc[..., :hp].reshape(bsz, s, h, ph)
+    xs, x_scaled, bmat, cmat, log_decay, new_tail = L.op(
+        impl, "mamba2_conv_in")(zxbcdt, p["conv_w"], p["conv_b"],
+                                p["dt_bias"], p["a_log"], st.get("conv"),
+                                torch.float32 if s == 1 else x.dtype, grp)
     # (B, S, G, N); one group is read by this rank's heads only
-    bmat = local.copy_to_model(xbc[..., hp:hp + gn]).reshape(bsz, s, grp, n)
-    cmat = local.copy_to_model(xbc[..., hp + gn:]).reshape(bsz, s, grp, n)
-
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    log_decay = -dt * torch.exp(p["a_log"])           # (B, S, H) <= 0
-    x_scaled = (xs.float() * dt[..., None]).to(x.dtype)
+    bmat, cmat = local.copy_to_model(bmat), local.copy_to_model(cmat)
 
     if s == 1:
         # decode fast path: one SSD recurrence step
@@ -254,12 +233,15 @@ def _mamba_block(p: Params, cfg: ModelConfig, x, tp: int, impl,
         y = torch.einsum("bhn,bhnp->bhp", cf, h1)[:, None].to(x.dtype)
         new_ssd = h1
     else:
-        y, new_ssd = L.op(impl, "mamba2")(x_scaled, log_decay.to(x.dtype),
-                                          bmat, cmat, st.get("ssd"))
+        y, new_ssd = L.op(impl, "mamba2")(x_scaled, log_decay, bmat, cmat,
+                                          st.get("ssd"))
 
-    y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, hp)
-    y = _gated_norm(y, z, p["norm"], cfg.norm_eps, grp)
+    if mesh:
+        y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
+        y = _gated_norm_tp(y.reshape(bsz, s, hp), z, p["norm"], cfg.norm_eps)
+    else:
+        y = L.op(impl, "mamba2_gate_out")(y, xs, z, p["d_skip"], p["norm"],
+                                          grp, cfg.norm_eps)
     return x + local.row_out(y @ p["out_proj"]), {"conv": new_tail,
                                                   "ssd": new_ssd}
 

@@ -31,8 +31,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import (GLUE, conv2d, dot, flash_attention, gemm,
-                                 gemv, mamba2, ops, plain, ref, rwkv6,
+from repro_torch.kernels import (GLUE, MAMBA2_GLUE, conv2d, dot,
+                                 flash_attention, gemm, gemv, glue_common,
+                                 mamba2, mamba2_glue, ops, plain, ref, rwkv6,
                                  rwkv6_glue, xla_attention, xla_linear)
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.bank_mm import bank_mm, bank_mm_plain
@@ -917,7 +918,7 @@ def _glue_mix_check(cuda, name, shape, dtype, carried):
     assert all(g.dtype == dt and g.shape == w.shape for g, w in zip(got, want))
     if not time_in:
         assert torch.equal(got[0], want[0])             # x + att
-    _close(normed, rwkv6_glue._rms_norm(x if time_in else want[0], ln),
+    _close(normed, glue_common.rms_norm(x if time_in else want[0], ln),
            *GLUE_TOL[dtype])
     xp = rwkv6_glue._shift(normed, prev)
     mixes = got[:-1] if time_in else got[1:-1]
@@ -976,7 +977,7 @@ def test_glue_head_out_matches_plain(cuda, bt, dh, dtype):
     one = torch.full_like(g_pre, 1.28125)
     assert torch.equal(F.silu(one), torch.ones_like(one))
     normed = rwkv6_glue.rwkv6_head_out(o, ln_x, one)
-    _close(normed, rwkv6_glue._rms_norm(o, ln_x).reshape(got.shape),
+    _close(normed, glue_common.rms_norm(o, ln_x).reshape(got.shape),
            *GLUE_TOL[dtype])
     assert torch.equal(got, normed * F.silu(g_pre))
     assert float((got != want).float().mean()) < 1e-3
@@ -1051,3 +1052,140 @@ def test_reduced_depth_forward_launches_each_glue_kernel_once_a_layer(cuda):
                           [0, 0], impl="cuda")
         assert [k.launches - n for k, n in zip(counted, before)] == \
             [cfg.n_layers] * len(GLUE) + [0]
+
+
+# -- the Zamba2 Mamba layer's glue (kernels/mamba2_glue.py) --------------------
+# Every kernel must give its plain version's bits, every output: conv_in's
+# arithmetic rounds where the plain version's does, and the two norms sum
+# their squares in the order PyTorch's CUDA reduction takes for the plain
+# torch.mean (csrc/mamba2_glue.cu's torch_order_sum, read from PyTorch
+# 2.11's Reduce.cuh), at every row count (the lanes of that reduction grow
+# as the rows fall below 16).  With a PyTorch that sums in another order the
+# norms would differ by that order alone, which glue_common.one_inv_a_row
+# (chip_smoke's rule for them) tells apart from a fault.
+# (d, heads, groups, eps): zamba2-7b's and zamba2-2.7b's Mamba widths
+MAMBA2_WIDTHS = {"zamba2-7b": (3584, 112, 2, 1e-5),
+                 "zamba2-2.7b": (2560, 80, 1, 1e-6)}
+# (widths, B, S, a tail carried): the forwards' rows, a decode step, a
+# slot prefill's ragged chunk and one shorter than the tail
+MAMBA2_GLUE_CASES = [("zamba2-7b", 1, 4096, False),
+                     ("zamba2-2.7b", 1, 4096, False),
+                     ("zamba2-7b", 2, 1, True), ("zamba2-2.7b", 2, 1, True),
+                     ("zamba2-7b", 2, 37, True), ("zamba2-2.7b", 3, 2, True),
+                     ("zamba2-2.7b", 1, 1, True), ("zamba2-7b", 5, 3, True),
+                     ("zamba2-2.7b", 8, 2, True)]
+
+
+def _mamba2_glue_inputs(dev, arch, b, s, carried, dt):
+    d, h, g, eps = MAMBA2_WIDTHS[arch]
+    hp, gn = h * 64, g * 64
+    c = hp + 2 * gn
+    zx = (2 * _on(dev, b, s, hp + c + h)).to(dt)
+    zx[..., -h:] = (8 * _on(dev, b, s, h)).to(dt)   # softplus's threshold
+    zx[:, 0, -1] = 24.0
+    return {"zx": zx, "conv_w": (0.3 * _on(dev, 4, c)).to(dt),
+            "conv_b": (0.1 * _on(dev, c)).to(dt),
+            "dt_bias": 0.5 * _on(dev, h), "a_log": 1 + 0.5 * _on(dev, h),
+            "tail": (2 * _on(dev, b, 3, c)).to(dt) if carried else None,
+            "x": (3 * _on(dev, b, s, d)).to(dt), "t": _on(dev, b, s, d).to(dt),
+            "ln": (1 + 0.1 * _on(dev, d)).to(dt),
+            "y": _on(dev, b, s, h, 64).to(dt), "d_skip": 1 + 0.5 * _on(dev, h),
+            "norm": (1 + 0.1 * _on(dev, hp)).to(dt), "dims": (hp, g, eps)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA2_GLUE_CASES)
+def test_mamba2_glue_matches_plain(cuda, case, dtype):
+    arch, b, s, carried = case
+    dt = DTYPES[dtype]
+    ins = _mamba2_glue_inputs(cuda, arch, b, s, carried, dt)
+    hp, g, eps = ins["dims"]
+    conv = (ins["zx"], ins["conv_w"], ins["conv_b"], ins["dt_bias"],
+            ins["a_log"], ins["tail"])
+    before = [k.launches for k in MAMBA2_GLUE]
+    for decay in {dt, torch.float32}:
+        got = mamba2_glue.mamba2_conv_in(*conv, decay, g)
+        want = plain.mamba2_conv_in(*conv, decay, g)
+        assert len(got) == len(want) == 6
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            assert torch.equal(a, w)
+    xs = got[0]
+    z = ins["zx"][..., :hp]
+    for t in (None, ins["t"]):
+        got = mamba2_glue.mamba2_norm_in(ins["x"], t, ins["ln"], eps)
+        want = plain.mamba2_norm_in(ins["x"], t, ins["ln"], eps)
+        assert got.dtype == dt and got.shape == want.shape
+        assert torch.equal(got, want)
+    gate = (ins["y"], xs, z, ins["d_skip"], ins["norm"], g, eps)
+    got = mamba2_glue.mamba2_gate_out(*gate)
+    want = plain.mamba2_gate_out(*gate)
+    assert got.dtype == dt and got.shape == want.shape
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(MAMBA2_GLUE, before)] == \
+        [2, len({dt, torch.float32}), 1]
+
+
+@pytest.mark.cuda
+def test_mamba2_glue_refuses_what_it_does_not_take(cuda):
+    ins = _mamba2_glue_inputs(cuda, "zamba2-7b", 1, 8, True, torch.float32)
+    hp, g, eps = ins["dims"]
+    conv = [ins["zx"], ins["conv_w"], ins["conv_b"], ins["dt_bias"],
+            ins["a_log"], ins["tail"]]
+    with pytest.raises(TypeError, match="one dtype"):
+        mamba2_glue.mamba2_norm_in(ins["x"], None,
+                                   ins["ln"].to(torch.bfloat16), eps)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_glue.mamba2_norm_in(ins["x"][:, ::2], None, ins["ln"], eps)
+    with pytest.raises(TypeError, match="decay"):
+        mamba2_glue.mamba2_conv_in(*conv, torch.bfloat16, g)
+    with pytest.raises(ValueError, match="shapes"):
+        mamba2_glue.mamba2_conv_in(*conv[:-1], ins["tail"][:, :2],
+                                   torch.float32, g)
+    with pytest.raises(ValueError, match="shapes"):
+        mamba2_glue.mamba2_gate_out(ins["y"], ins["y"], ins["zx"][..., :hp],
+                                    ins["d_skip"], ins["norm"], 3, eps)
+    with pytest.raises(ValueError, match="norms rows"):   # 8192 at most
+        mamba2_glue.mamba2_norm_in(_on(cuda, 1, 2, 8200), None,
+                                   _on(cuda, 8200), eps)
+
+
+@pytest.mark.cuda
+def test_zamba2_7b_forward_launches_each_mamba2_glue_kernel_81_times(cuda):
+    """zamba2-7b at its published widths and depth: a forward launches
+    each of the Mamba layer's three glue kernels once a layer, 81 times,
+    and so does a one-token decode step (with no mamba2 kernel); at eight
+    layers (one hybrid) the kernel forward agrees with the plain one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zamba2 as model
+
+    cfg = get_config("zamba2-7b")
+    assert cfg.n_layers == 81
+    params = model.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, 300), device=cuda, generator=gen)
+    counted = (*MAMBA2_GLUE, mamba2)
+    with torch.no_grad():
+        before = [k.launches for k in counted]
+        logits = model.forward(params, cfg, {"tokens": tokens}, impl="cuda")
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(counted, before)] == \
+            [81] * len(counted)
+        assert bool(torch.isfinite(logits).all())
+        cache = model.init_cache(cfg, 2, 64, device="cuda")
+        before = [k.launches for k in counted]
+        model.decode_step(params, cfg, cache, tokens[:, :2].T.contiguous(),
+                          [0, 0], impl="cuda")
+        assert [k.launches - n for k, n in zip(counted, before)] == \
+            [81] * len(MAMBA2_GLUE) + [0]
+        del params, logits, cache
+        small = dataclasses.replace(cfg, n_layers=8, hybrid_layer_ids=(6,))
+        params = model.init(small, seed=0, device="cuda")
+        got = model.forward(params, small, {"tokens": tokens}, impl="cuda")
+        want = model.forward(params, small, {"tokens": tokens}, impl=plain)
+        cos = F.cosine_similarity(got.float(), want.float(), dim=-1)
+        assert float(cos.min()) > 0.999
